@@ -1,0 +1,190 @@
+"""Windowed Hamming top-2 projection search: the hand-written CUDA kernel and
+its plain PyTorch twin.
+
+`hamming_top2_windowed` replaces the TPU kernel
+`mc_slam_tpu/frontend/match_pallas.py::hamming_top2_windowed`. On a CUDA
+tensor it launches `csrc/hamming_top2_windowed.cu` (built for sm_90a with
+nvcc into a plain-C shared library and loaded with ctypes) or raises; on a
+CPU tensor it runs the twin `hamming_top2_windowed_ref`, the materialized
+(M, N) formulation of `tests/test_match_pallas.py`. There is no fallback
+from the kernel to the twin.
+
+Contract, both paths: queries a_* (M rows: packed descriptor words, uv,
+level, valid), candidates b_* (N rows alike); returns int32 (best, second,
+idx), each (M,). BIG = 10000 and idx = 0 where nothing passes the gate.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+BIG = 10_000
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_SOURCE = _CSRC / "hamming_top2_windowed.cu"
+_BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def hamming_top2_windowed_ref(a_pm1, a_uv, a_lvl, a_valid, b_pm1, b_uv, b_lvl,
+                              b_valid, radius, level_tol=1):
+    """Plain PyTorch twin on +/-1 int8 rows: dense distance matrix, window
+    gate, min / first argmin / min over the other columns."""
+    from mc_slam_tpu_torch.frontend.matching import hamming_matrix, window_mask
+    M, N = a_pm1.shape[0], b_pm1.shape[0]
+    if N == 0:
+        full = lambda v: torch.full((M,), v, dtype=torch.int32, device=a_pm1.device)
+        return full(BIG), full(BIG), full(0)
+    dist = hamming_matrix(a_pm1, b_pm1)
+    gate = window_mask(a_uv, b_uv, radius, a_lvl, b_lvl, level_tol)
+    gate = gate & a_valid[:, None] & b_valid[None, :]
+    d = torch.where(gate, dist, BIG)
+    best, idx = torch.min(d, dim=1)          # first minimum per row
+    rows = torch.arange(d.shape[0], device=d.device)
+    d2 = d.clone()
+    d2[rows, idx] = BIG
+    second = torch.amin(d2, dim=1)
+    return best.to(torch.int32), second.to(torch.int32), idx.to(torch.int32)
+
+
+def _find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
+    try:
+        from torch.utils.cpp_extension import CUDA_HOME
+        homes.append(CUDA_HOME)
+    except ImportError:
+        pass
+    homes.append("/usr/local/cuda")
+    for h in homes:
+        if h and (Path(h) / "bin" / "nvcc").is_file():
+            return str(Path(h) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found on PATH, CUDA_HOME or "
+                       "torch.utils.cpp_extension.CUDA_HOME: cannot build "
+                       "the hamming_top2_windowed kernel")
+
+
+def build_library() -> Path:
+    """Compile csrc/hamming_top2_windowed.cu into _build/<hash>/ unless that
+    build exists. The directory name hashes the source and the flags, so an
+    edited source rebuilds. Returns the shared library's path."""
+    src = _SOURCE.read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out_dir = _BUILD_ROOT / key
+    lib = out_dir / "libhamming_top2_windowed.so"
+    if lib.is_file():
+        return lib
+    out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _find_nvcc()
+    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
+                                     delete=False) as tmp:
+        tmp_path = Path(tmp.name)
+    try:
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp_path), str(_SOURCE)],
+                              capture_output=True, text=True, check=False)
+        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp_path, lib)
+    finally:
+        tmp_path.unlink(missing_ok=True)
+    return lib
+
+
+class _Library:
+    """The loaded kernel library; built and loaded on first launch only."""
+
+    def __init__(self):
+        self._fn = None
+
+    def launch_fn(self):
+        if self._fn is None:
+            lib = ctypes.CDLL(str(build_library()))
+            fn = lib.hamming_top2_windowed_launch
+            p = ctypes.c_void_p
+            fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, ctypes.c_int,
+                           ctypes.c_int, ctypes.c_int, p, p, p, p]
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+_LIB = _Library()
+
+
+def _check(name, t, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def validate_inputs(a_desc, a_pm1, a_uv, a_lvl, a_valid,
+                    b_desc, b_pm1, b_uv, b_lvl, b_valid):
+    """Raise on any input the kernel or its twin does not take: a device
+    other than the first input's, a dtype other than int32 words / int8 +/-1
+    rows / float32 uv / int32 level / bool valid, a wrong shape, or a
+    non-contiguous tensor. Returns (M, N)."""
+    dev = a_desc.device
+    M, N = a_desc.shape[0], b_desc.shape[0]
+    for pre, n, (desc, pm1, uv, lvl, valid) in (
+            ("a", M, (a_desc, a_pm1, a_uv, a_lvl, a_valid)),
+            ("b", N, (b_desc, b_pm1, b_uv, b_lvl, b_valid))):
+        _check(f"{pre}_desc", desc, torch.int32, (n, 8), dev)
+        _check(f"{pre}_pm1", pm1, torch.int8, (n, 256), dev)
+        _check(f"{pre}_uv", uv, torch.float32, (n, 2), dev)
+        _check(f"{pre}_lvl", lvl, torch.int32, (n,), dev)
+        _check(f"{pre}_valid", valid, torch.bool, (n,), dev)
+    return M, N
+
+
+def hamming_top2_windowed(a_desc, a_pm1, a_uv, a_lvl, a_valid,
+                          b_desc, b_pm1, b_uv, b_lvl, b_valid,
+                          radius, level_tol: int = 1):
+    """Fused windowed top-2 Hamming match; see the module docstring.
+
+    a_desc/b_desc: (., 8) int32 packed words (read by the kernel);
+    a_pm1/b_pm1: the same descriptors as (., 256) int8 +/-1 rows (read by
+    the CPU twin). CUDA inputs launch the kernel on the current stream, with
+    no host sync; `hamming_top2_windowed.launches` counts those launches."""
+    M, N = validate_inputs(a_desc, a_pm1, a_uv, a_lvl, a_valid,
+                           b_desc, b_pm1, b_uv, b_lvl, b_valid)
+    if a_desc.device.type == "cpu":
+        return hamming_top2_windowed_ref(a_pm1, a_uv, a_lvl, a_valid, b_pm1,
+                                         b_uv, b_lvl, b_valid, radius, level_tol)
+    if a_desc.device.type != "cuda":
+        raise ValueError(f"no kernel for device {a_desc.device}")
+    fn = _LIB.launch_fn()
+    outs = [torch.empty(M, dtype=torch.int32, device=a_desc.device)
+            for _ in range(3)]
+    stream = torch.cuda.current_stream(a_desc.device).cuda_stream
+    err = fn(a_desc.data_ptr(), a_uv.data_ptr(), a_lvl.data_ptr(),
+             a_valid.data_ptr(), b_desc.data_ptr(), b_uv.data_ptr(),
+             b_lvl.data_ptr(), b_valid.data_ptr(), float(radius), int(level_tol),
+             M, N, outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+             stream)
+    if err != 0:
+        raise RuntimeError(f"hamming_top2_windowed launch failed: CUDA error {err}")
+    _WRAPPER.launches += 1
+    return outs[0], outs[1], outs[2]
+
+
+hamming_top2_windowed.launches = 0
+# the counter's owner, even if a caller rebinds the module attribute (a
+# timing or recording shim in front of the wrapper)
+_WRAPPER = hamming_top2_windowed

@@ -1,0 +1,93 @@
+"""The SLAM map as a fixed-capacity struct of tensors
+(port of mc_slam_tpu/slam_map/mapstate.py).
+
+Keyframe table, per-keyframe observation table and map-point table, with
+the JAX package's field names, shapes and validity masks. Packed descriptor
+tables (kf_desc, mp_desc) are int32 holding the uint32 bits.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mc_slam_tpu_torch.imu.navstate import NavState, navstate_identity
+from mc_slam_tpu_torch.imu.preintegration import PreintState, preint_identity
+
+
+class MapState(NamedTuple):
+    # --- keyframes ---
+    kf_ns: NavState          # (K, ...) body NavStates (world-from-body)
+    kf_time: torch.Tensor    # (K,)
+    kf_id: torch.Tensor      # (K,) int32 original frame id
+    kf_active: torch.Tensor  # (K,) bool
+    # --- per-keyframe features (observation table) ---
+    kf_uv: torch.Tensor      # (K, F, 2) undistorted pixels
+    kf_level: torch.Tensor   # (K, F) int32
+    kf_angle: torch.Tensor   # (K, F) float32 IC angle (rad)
+    kf_ur: torch.Tensor      # (K, F) right-image u; -1 = mono
+    kf_desc: torch.Tensor    # (K, F, 8) int32 packed words
+    kf_pm1: torch.Tensor     # (K, F, 256) int8
+    kf_feat_valid: torch.Tensor  # (K, F) bool
+    kf_mp: torch.Tensor      # (K, F) int32 map-point index or -1
+    # --- IMU chain: preintegration from the previous active KF ---
+    kf_preint: PreintState   # batch (K, ...)
+    # --- map points ---
+    mp_pos: torch.Tensor     # (P, 3)
+    mp_desc: torch.Tensor    # (P, 8) int32 packed representative descriptor
+    mp_pm1: torch.Tensor     # (P, 256) int8
+    mp_normal: torch.Tensor  # (P, 3) mean viewing direction
+    mp_min_dist: torch.Tensor  # (P,) scale-invariance range
+    mp_max_dist: torch.Tensor  # (P,)
+    mp_ref_kf: torch.Tensor  # (P,) int32 reference keyframe slot
+    mp_angle: torch.Tensor   # (P,) float32 IC angle of the anchoring observation
+    mp_found: torch.Tensor   # (P,) float32 found counter
+    mp_visible: torch.Tensor  # (P,) float32 visible counter
+    mp_first_kf: torch.Tensor  # (P,) int32 id of the creating frame
+    mp_active: torch.Tensor  # (P,) bool
+
+    @property
+    def K(self):
+        return self.kf_active.shape[0]
+
+    @property
+    def P(self):
+        return self.mp_active.shape[0]
+
+    @property
+    def F(self):
+        return self.kf_feat_valid.shape[1]
+
+
+def empty_map(max_kf: int, max_mp: int, n_feat: int, dtype=torch.float32,
+              device=None) -> MapState:
+    K, P, F = max_kf, max_mp, n_feat
+    z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
+    full = lambda s, v, dt: torch.full(s, v, dtype=dt, device=device)
+    return MapState(
+        kf_ns=navstate_identity((K,), dtype, device),
+        kf_time=z(K),
+        kf_id=full((K,), -1, torch.int32),
+        kf_active=z(K, dt=torch.bool),
+        kf_uv=z(K, F, 2),
+        kf_level=z(K, F, dt=torch.int32),
+        kf_angle=z(K, F),
+        kf_ur=full((K, F), -1.0, dtype),
+        kf_desc=z(K, F, 8, dt=torch.int32),
+        kf_pm1=z(K, F, 256, dt=torch.int8),
+        kf_feat_valid=z(K, F, dt=torch.bool),
+        kf_mp=full((K, F), -1, torch.int32),
+        kf_preint=preint_identity((K,), dtype, device),
+        mp_pos=z(P, 3),
+        mp_desc=z(P, 8, dt=torch.int32),
+        mp_pm1=z(P, 256, dt=torch.int8),
+        mp_normal=z(P, 3),
+        mp_min_dist=z(P),
+        mp_max_dist=z(P),
+        mp_ref_kf=z(P, dt=torch.int32),
+        mp_angle=z(P),
+        mp_found=z(P),
+        mp_visible=z(P),
+        mp_first_kf=z(P, dt=torch.int32),
+        mp_active=z(P, dt=torch.bool),
+    )

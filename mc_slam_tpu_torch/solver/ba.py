@@ -1,0 +1,94 @@
+"""Pose-only visual optimization (port of the tracking part of
+mc_slam_tpu/solver/ba.py): Optimizer::PoseOptimization(Frame) as a
+fixed-iteration LM over one body pose against fixed world points.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from mc_slam_tpu_torch import lie
+from mc_slam_tpu_torch.camera import Camera
+from mc_slam_tpu_torch.solver import factors, lm
+
+CHI2_MONO = 5.991    # 95% quantile of chi2(2), reference's mono gate
+CHI2_STEREO = 7.815  # 95% quantile of chi2(3), reference's stereo gate
+
+
+class VisualObs(NamedTuple):
+    """Padded observation table (mono rows)."""
+    cam: torch.Tensor         # (O,) int64 camera index
+    pt: torch.Tensor          # (O,) int64 point index
+    uv: torch.Tensor          # (O, 2) ideal (undistorted) pixels
+    inv_sigma2: torch.Tensor  # (O,) per-level information scale
+    valid: torch.Tensor       # (O,) {0,1} float
+    # observed right-image u; None => monocular problem. Stereo rows
+    # (factors.reproj_xyz3) are not ported yet.
+    ur: torch.Tensor | None = None
+
+
+def obs_reproj(cam: Camera, ext, P_wb, R_wb, Pw, obs: VisualObs):
+    """Mono 2-row reprojection for an observation batch.
+    Returns (r, J_pr, J_pt, z, delta2)."""
+    if obs.ur is not None:
+        raise NotImplementedError("stereo / RGB-D residual rows are not ported yet")
+    r, J_pr, J_pt, z = factors.reproj_xyz(cam, ext, P_wb, R_wb, Pw, obs.uv)
+    return r, J_pr, J_pt, z, CHI2_MONO
+
+
+def _obs_weights(r, z, inv_sigma2, valid, delta2):
+    """Robust scalar weight per obs: info * trunc-huber(chi2) * valid * (z > 0)."""
+    chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
+    w_rob = lm.trunc_huber_weight(chi2, delta2)
+    pos = (z > 1e-6).to(r.dtype)
+    return inv_sigma2 * w_rob * valid * pos, chi2
+
+
+def _robust_cost(r, z, inv_sigma2, valid, delta2):
+    """Truncated-Huber cost; out-of-frustum observations sit on the plateau."""
+    chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
+    rho = lm.trunc_huber_cost(chi2, delta2)
+    rho = torch.where(z > 1e-6, rho, lm.trunc_plateau(delta2))
+    return torch.sum(valid * rho)
+
+
+def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
+                     ext: factors.Extrinsics, iters: int = 40, rtol: float = 0.0):
+    """Optimize a single body pose against fixed world points.
+    Returns (P, R, chi2 (O,), n_inlier)."""
+    pts_o = pts_w[obs.pt]
+
+    def per_obs(P, R):
+        return obs_reproj(camera, ext, P, R, pts_o, obs)
+
+    def retract(x, dx):
+        P, R = x
+        return (P + dx[:3], R @ lie.so3_exp(dx[3:6]))
+
+    def make_fns(valid):
+        def cost_fn(x):
+            r, _, _, z, d2 = per_obs(*x)
+            return _robust_cost(r, z, obs.inv_sigma2, valid, d2)
+
+        def linearize_solve(x, lam):
+            r, J_pr, _, z, d2 = per_obs(*x)
+            w, _ = _obs_weights(r, z, obs.inv_sigma2, valid, d2)
+            H = torch.einsum('o,orc,ord->cd', w, J_pr, J_pr)
+            g = torch.einsum('o,orc,or->c', w, J_pr, r)
+            H = H + torch.diag(lam * torch.diagonal(H) + 1e-10)
+            return lm.cho_solve_nan(H, -g)
+
+        return linearize_solve, retract, cost_fn
+
+    def classify(x, valid0):
+        r, _, _, z, d2 = per_obs(*x)
+        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+        return valid0 * ((chi2 <= d2) & (z > 1e-6)).to(valid0.dtype)
+
+    (P, R), _, _ = lm.lm_two_phase((P0, R0), make_fns, obs.valid, classify, iters,
+                                   p1_frac=0.5, rtol=rtol, enable=False)
+    r, _, _, z, d2 = per_obs(P, R)
+    chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+    inlier = (chi2 <= d2) & (z > 0) & (obs.valid > 0)
+    return P, lie.so3_normalize_fast(R), chi2, torch.sum(inlier)
