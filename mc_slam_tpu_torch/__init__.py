@@ -5,9 +5,10 @@ layout and names (`mc_slam_tpu_torch/frontend/matching.py` is the port of
 `mc_slam_tpu/frontend/matching.py`, and so on). It imports torch and numpy,
 never jax and never mc_slam_tpu.
 
-Functions take tensors and work on the device of their inputs; nothing here
-picks a device for the caller. The one hand-written kernel of the tracking
-path, the windowed Hamming top-2 projection search, lives in
+Functions take tensors and work on the device of their inputs. Constructors
+that take `device=None` build on the card (`device.resolve`): the CPU is used
+only when the caller asks for it. The one hand-written kernel, the windowed
+Hamming top-2 projection search of tracking, lives in
 `frontend/match_cuda.py` + `csrc/hamming_top2_windowed.cu`.
 """
 

@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from mc_slam_tpu_torch.device import resolve
+
 
 class Camera(NamedTuple):
     fx: torch.Tensor
@@ -28,6 +30,7 @@ class Camera(NamedTuple):
 def make_camera(fx, fy, cx, cy, k1=0.0, k2=0.0, p1=0.0, p2=0.0, k3=0.0,
                 width=752, height=480, dtype=torch.float32,
                 device=None) -> Camera:
+    device = resolve(device)
     a = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return Camera(a(fx), a(fy), a(cx), a(cy), a(k1), a(k2), a(p1), a(p2), a(k3),
                   int(width), int(height))

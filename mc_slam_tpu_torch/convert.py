@@ -17,6 +17,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from mc_slam_tpu_torch.device import resolve
+
 PACKED_FIELDS = frozenset({"desc", "kf_desc", "mp_desc"})
 
 
@@ -38,6 +40,7 @@ def to_torch(cls, src, device=None):
     Nested NamedTuple fields (MapState.kf_ns, PriorFactor.ns0, ...) convert
     recursively; int fields (Camera.width/height) stay Python ints; None
     stays None."""
+    device = resolve(device)
     hints = typing.get_type_hints(cls)
     out = {}
     for f in cls._fields:

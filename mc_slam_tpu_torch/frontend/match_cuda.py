@@ -169,6 +169,11 @@ def hamming_top2_windowed(a_desc, a_pm1, a_uv, a_lvl, a_valid,
                                          b_uv, b_lvl, b_valid, radius, level_tol)
     if a_desc.device.type != "cuda":
         raise ValueError(f"no kernel for device {a_desc.device}")
+    # the kernel reads descriptor rows as 16-byte and uv rows as 8-byte words
+    for name, t, align in (("a_desc", a_desc, 16), ("b_desc", b_desc, 16),
+                           ("a_uv", a_uv, 8), ("b_uv", b_uv, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name} is not {align}-byte aligned")
     fn = _LIB.launch_fn()
     outs = [torch.empty(M, dtype=torch.int32, device=a_desc.device)
             for _ in range(3)]

@@ -67,8 +67,7 @@ def match_nn(dist, mask, max_dist=TH_LOW, ratio=None, ratio_mask=None):
     ok = best <= max_dist
     if ratio is not None:
         dr = torch.where(ratio_mask, dist, BIG) if ratio_mask is not None else d
-        d2 = dr.clone()
-        d2[torch.arange(d.shape[0], device=d.device), idx] = BIG
+        d2 = dr.scatter(1, idx[:, None], BIG)      # the best column out of the running
         second = torch.amin(d2, dim=1)
         ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
     return idx, best, ok

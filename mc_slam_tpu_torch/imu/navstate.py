@@ -10,6 +10,8 @@ from typing import NamedTuple
 
 import torch
 
+from mc_slam_tpu_torch.device import resolve
+
 
 class NavState(NamedTuple):
     P: torch.Tensor    # (..., 3) position of body in world
@@ -31,6 +33,7 @@ class NavState(NamedTuple):
 
 def navstate_identity(batch_shape=(), dtype=torch.float32, device=None) -> NavState:
     batch_shape = tuple(batch_shape)
+    device = resolve(device)
     z3 = torch.zeros(batch_shape + (3,), dtype=dtype, device=device)
     eye = torch.eye(3, dtype=dtype, device=device).expand(batch_shape + (3, 3))
     return NavState(P=z3, V=z3.clone(), R=eye.clone(), bg=z3.clone(),

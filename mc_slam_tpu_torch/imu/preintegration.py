@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from mc_slam_tpu_torch.device import resolve
+
 from mc_slam_tpu_torch import lie
 
 
@@ -24,6 +26,7 @@ class IMUNoise(NamedTuple):
 
 
 def euroc_noise(dtype=torch.float32, device=None) -> IMUNoise:
+    device = resolve(device)
     a = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     return IMUNoise(sigma_g=a(1.7e-4), sigma_a=a(2e-2), sigma_bg=a(2e-5),
                     sigma_ba=a(5e-3))
@@ -44,6 +47,7 @@ class PreintState(NamedTuple):
 
 def preint_identity(batch_shape=(), dtype=torch.float32, device=None) -> PreintState:
     batch_shape = tuple(batch_shape)
+    device = resolve(device)
     z = lambda *s: torch.zeros(batch_shape + s, dtype=dtype, device=device)
     eye = torch.eye(3, dtype=dtype, device=device).expand(batch_shape + (3, 3))
     return PreintState(dP=z(3), dV=z(3), dR=eye.clone(), J_P_bg=z(3, 3),

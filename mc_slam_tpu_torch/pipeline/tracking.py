@@ -8,7 +8,7 @@ visual fallback, trajectory row).
 
 Differences of form from the JAX package, none of semantics:
 * `.at[...].set(..., mode="drop")` scatters write into a buffer with one
-  extra dummy slot that is sliced off (torch has no drop mode).
+  extra dummy slot that is sliced off (torch has no drop mode; `_set_drop`).
 * The `lax.cond` fallbacks are a host `if` on one flag: ONE device->host
   sync per frame.
 * The found/visible scatter marks every map point that some feature matched
@@ -27,7 +27,7 @@ from mc_slam_tpu_torch.frontend import extractor, matching
 from mc_slam_tpu_torch.frontend.extractor import Features
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import predict_navstate, preintegrate
-from mc_slam_tpu_torch.slam_map.mapstate import MapState
+from mc_slam_tpu_torch.slam_map.mapstate import MapState, _set_drop
 from mc_slam_tpu_torch.solver import ba, ba_vi, factors
 from mc_slam_tpu_torch.solver.ba import VisualObs
 
@@ -72,11 +72,11 @@ def last_frame_angles(m: MapState, prev_feat_mp, prev_angle):
     """Scatter the previous frame's keypoint angles onto map-point slots.
     Returns (angle (P,), seen (P,) bool)."""
     tgt = torch.where(prev_feat_mp >= 0, prev_feat_mp, m.P).to(torch.int64)
-    angle = torch.zeros(m.P + 1, dtype=prev_angle.dtype, device=prev_angle.device)
-    angle[tgt] = prev_angle
-    seen = torch.zeros(m.P + 1, dtype=torch.bool, device=prev_angle.device)
-    seen[tgt] = True
-    return angle[:m.P], seen[:m.P]
+    angle = _set_drop(torch.zeros(m.P, dtype=prev_angle.dtype, device=prev_angle.device),
+                      tgt, prev_angle)
+    seen = _set_drop(torch.zeros(m.P, dtype=torch.bool, device=prev_angle.device),
+                     tgt, True)
+    return angle, seen
 
 
 def predict_level(m: MapState, P, dist_scale=1.2, n_levels=8):
@@ -91,18 +91,15 @@ def predict_level(m: MapState, P, dist_scale=1.2, n_levels=8):
 def _invert_matches(m: MapState, mp_idx, ok, Fn):
     """(map point -> feature) to (feature -> map point), accepted matches only;
     duplicates are already resolved per feature."""
-    tgt = torch.where(ok, mp_idx, Fn)
-    feat_mp = torch.full((Fn + 1,), -1, dtype=torch.int32, device=mp_idx.device)
-    feat_mp[tgt] = torch.arange(m.P, dtype=torch.int32, device=mp_idx.device)
-    return feat_mp[:Fn]
+    feat_mp = torch.full((Fn,), -1, dtype=torch.int32, device=mp_idx.device)
+    return _set_drop(feat_mp, torch.where(ok, mp_idx, Fn),
+                     torch.arange(m.P, dtype=torch.int32, device=mp_idx.device))
 
 
 def _seen_mask(m: MapState, feat_mp):
     """(P,) bool: map points matched by some feature."""
     tgt = torch.where(feat_mp >= 0, feat_mp, m.P).to(torch.int64)
-    vis = torch.zeros(m.P + 1, dtype=torch.bool, device=feat_mp.device)
-    vis[tgt] = True
-    return vis[:m.P]
+    return _set_drop(torch.zeros(m.P, dtype=torch.bool, device=feat_mp.device), tgt, True)
 
 
 def _search(m, feats, uv_ideal, cam, ext, P, R, radius, inv_sigma2,

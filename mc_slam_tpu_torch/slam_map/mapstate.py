@@ -11,6 +11,8 @@ from typing import NamedTuple
 
 import torch
 
+from mc_slam_tpu_torch.device import resolve
+
 from mc_slam_tpu_torch.imu.navstate import NavState, navstate_identity
 from mc_slam_tpu_torch.imu.preintegration import PreintState, preint_identity
 
@@ -62,6 +64,7 @@ class MapState(NamedTuple):
 def empty_map(max_kf: int, max_mp: int, n_feat: int, dtype=torch.float32,
               device=None) -> MapState:
     K, P, F = max_kf, max_mp, n_feat
+    device = resolve(device)
     z = lambda *s, dt=dtype: torch.zeros(s, dtype=dt, device=device)
     full = lambda s, v, dt: torch.full(s, v, dtype=dt, device=device)
     return MapState(
@@ -91,3 +94,67 @@ def empty_map(max_kf: int, max_mp: int, n_feat: int, dtype=torch.float32,
         mp_first_kf=z(P, dt=torch.int32),
         mp_active=z(P, dt=torch.bool),
     )
+
+
+def kf_sees_matrix(m: MapState, obs):
+    """(K, P) float32 membership: 1 where keyframe k holds map point p in a
+    feature selected by `obs` (K, F) bool. A scatter-max, so a keyframe that
+    holds one point in two features still counts once, and the result does
+    not depend on the order of the writes (unassociated features write 0
+    through slot 0, as in the JAX package)."""
+    K, P, F = m.K, m.P, m.F
+    flat_k = torch.arange(K, device=obs.device).repeat_interleave(F)
+    flat_p = torch.clamp(m.kf_mp.reshape(-1), 0, P - 1).to(torch.int64)
+    sees = torch.zeros(K * P, dtype=torch.float32, device=obs.device)
+    sees = sees.scatter_reduce(0, flat_k * P + flat_p,
+                               obs.reshape(-1).to(torch.float32), reduce="amax",
+                               include_self=True)
+    return sees.reshape(K, P)
+
+
+def _set_drop(t, idx, val):
+    """t.at[idx].set(val, mode="drop"): entries of `idx` equal to t.shape[0]
+    are not written (they land in an extra row that is sliced off). A Python
+    scalar `val` becomes a device tensor by a fill, not by a host copy."""
+    if not isinstance(val, torch.Tensor):
+        val = torch.full((), val, dtype=t.dtype, device=t.device)
+    buf = torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
+    buf[idx] = val
+    return buf[:-1]
+
+
+def _slot_tensor(k, device):
+    """(1,) int64 tensor of a keyframe slot given as a Python int (a fill, not
+    a host copy) or as a 0-d / (1,) integer tensor."""
+    if isinstance(k, int):
+        return torch.full((1,), k, dtype=torch.int64, device=device)
+    return k.reshape(1).to(torch.int64)
+
+
+def _row(t, k):
+    """t[k] for a Python int or a 0-d / (1,) integer tensor k, without a host
+    read (indexing with a 0-d tensor would read it back)."""
+    if isinstance(k, int):
+        return t[k]
+    return t.index_select(0, k.reshape(1).to(torch.int64))[0]
+
+
+def covisibility_weights(m: MapState, kf_slot):
+    """(K,) shared-map-point counts between `kf_slot` and every keyframe
+    (KeyFrame::UpdateConnections, src/KeyFrame.cpp:668)."""
+    sees = kf_sees_matrix(m, (m.kf_mp >= 0) & m.kf_feat_valid)
+    this = _row(sees, kf_slot)
+    return sees @ (this * m.mp_active)
+
+
+def covisibility_matrix(m: MapState):
+    """(K, K) shared-map-point counts between every pair of active keyframes."""
+    sees = kf_sees_matrix(m, (m.kf_mp >= 0) & m.kf_feat_valid)
+    sees = sees * m.mp_active[None, :] * m.kf_active[:, None]
+    return sees @ sees.T
+
+
+def observation_counts(m: MapState):
+    """(P,) number of active keyframes observing each map point."""
+    obs = (m.kf_mp >= 0) & m.kf_feat_valid & m.kf_active[:, None]
+    return torch.sum(kf_sees_matrix(m, obs), dim=0) * m.mp_active

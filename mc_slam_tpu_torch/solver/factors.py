@@ -1,5 +1,6 @@
-"""Residual / analytic-Jacobian kernels of the tracking factors
-(port of the parts of mc_slam_tpu/solver/factors.py that tracking reaches).
+"""Residual / analytic-Jacobian kernels of the tracking and window-BA factors
+(port of the parts of mc_slam_tpu/solver/factors.py that tracking and the
+keyframe event reach).
 
 Body pose (P = t_wb, R = R_wb) with retraction P <- P + dP, R <- R Exp(dphi).
 Reprojection residual r = project(Pc) - uv_obs; IMU PRV residual order
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from mc_slam_tpu_torch.device import resolve
 
 from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import Camera, project_jacobian
@@ -23,7 +26,7 @@ class Extrinsics(NamedTuple):
 
 def extrinsics_from_Tbc(Tbc, dtype=torch.float32, device=None) -> Extrinsics:
     """From the body-from-camera matrix Tbc (config/euroc.yaml:40-44)."""
-    Tbc = torch.as_tensor(Tbc, dtype=dtype, device=device)
+    Tbc = torch.as_tensor(Tbc, dtype=dtype, device=resolve(device))
     Rcb = Tbc[:3, :3].T.contiguous()
     return Extrinsics(Rcb=Rcb, tcb=-Rcb @ Tbc[:3, 3])
 
@@ -55,6 +58,46 @@ def reproj_xyz(cam: Camera, ext: Extrinsics, P_wb, R_wb, Pw, uv):
     J_pr = torch.cat([Jpi @ (-RcbRwbT), Jpi @ J_phi], dim=-1)
     J_pt = Jpi @ RcbRwbT
     return r, J_pr, J_pt, z
+
+
+def reproj_idp(cam: Camera, ext: Extrinsics, rho, uv0, P_wb0, R_wb0, P_wbi, R_wbi, uv):
+    """Residual + Jacobians for anchored inverse-depth observations
+    (EdgePRIDP, src/IMU/g2otypes.cpp:20-158).
+
+    rho (...,): inverse depth in the anchor camera; uv0 (..., 2): the
+    anchor-frame ideal pixel of the landmark; (P_wb0, R_wb0): anchor body
+    pose; (P_wbi, R_wbi): observing body pose.
+    Returns r (..., 2), J_rho (..., 2, 1), J_pr0 (..., 2, 6), J_pri (..., 2, 6),
+    z (...,)."""
+    rho_safe = torch.clamp(rho, min=1e-6)   # the reference clamps the same way
+    d = 1.0 / rho_safe
+    xn0 = torch.stack([(uv0[..., 0] - cam.cx) / cam.fx,
+                       (uv0[..., 1] - cam.cy) / cam.fy], dim=-1)
+    P0c = torch.cat([xn0 * d[..., None], d[..., None]], dim=-1)   # in the anchor camera
+
+    # anchor camera -> world: Pw = Rwb0 (Rbc P0c + pbc) + P0, Rbc = Rcb^T
+    Rbc = ext.Rcb.transpose(-1, -2)
+    RbcP = _mv(Rbc, P0c - ext.tcb)
+    Pw = _mv(R_wb0, RbcP) + P_wb0
+
+    # world -> observing camera
+    RwbiT = R_wbi.transpose(-1, -2)
+    Pbi = _mv(RwbiT, Pw - P_wbi)
+    Pci = _mv(ext.Rcb, Pbi) + ext.tcb
+    uv_hat, z = _project_ideal(cam, Pci)
+    r = uv_hat - uv
+    Jpi = project_jacobian(cam, Pci)
+
+    Rcic0 = (ext.Rcb @ RwbiT) @ (R_wb0 @ Rbc)   # observing camera from anchor camera
+    # dPci/drho = Rcic0 dP0c/drho, dP0c/drho = -d * P0c
+    J_rho = Jpi @ (Rcic0 @ (-d[..., None] * P0c)[..., None])
+
+    RcbRwbiT = ext.Rcb @ RwbiT
+    J_phi0 = -(RcbRwbiT @ R_wb0) @ lie.hat(RbcP)
+    J_pr0 = torch.cat([Jpi @ RcbRwbiT, Jpi @ J_phi0], dim=-1)
+    J_phii = ext.Rcb @ lie.hat(Pbi)
+    J_pri = torch.cat([Jpi @ (-RcbRwbiT), Jpi @ J_phii], dim=-1)
+    return r, J_rho, J_pr0, J_pri, z
 
 
 def imu_prv(P_i, R_i, V_i, dbg_i, dba_i, P_j, R_j, V_j, pre, gw):

@@ -31,7 +31,7 @@ N_FEAT, N_LEVELS = 256, 3
 def frame():
     import chip_smoke
     p = chip_smoke.Profile(width=320, height=240, n_feat=N_FEAT, n_levels=N_LEVELS)
-    cam = chip_smoke.profile_camera(p)
+    cam = chip_smoke.profile_camera(p, "cpu")
     world = RoomWorld(np.random.default_rng(0), tex_size=256, tex_scale=1.0)
     P, R = MavTrajectory().pose(0.3)
     return world.render(cam, R, P)

@@ -42,6 +42,27 @@ def test_port_imports_no_jax():
     assert "BAD []" in proc.stdout
 
 
+NEW_MODULES = ("device", "geometry.triangulation", "solver.ba_vi_idp",
+               "pipeline.mapping", "pipeline.mapping_ctl", "tools.bench_hamming",
+               "tools.profile_event")
+
+
+def test_keyframe_event_modules_are_covered():
+    """The modules of the keyframe-event slice are among those the import
+    test walks."""
+    names = _port_modules()
+    for mod in NEW_MODULES:
+        assert f"mc_slam_tpu_torch.{mod}" in names, mod
+
+
+@pytest.mark.parametrize("tool", ["bench_hamming", "profile_event"])
+def test_measurement_tools_refuse_without_gpu(tool):
+    proc = subprocess.run([sys.executable, "-m", f"mc_slam_tpu_torch.tools.{tool}"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0 and "no GPU" in proc.stderr
+
+
 def test_port_sources_never_name_jax():
     for path in (ROOT / "mc_slam_tpu_torch").rglob("*.py"):
         for line in path.read_text().splitlines():

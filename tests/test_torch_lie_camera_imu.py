@@ -57,7 +57,7 @@ def _uv(seed=4, n=500):
 def test_undistort_points():
     uv = _uv()
     _close(jcam.undistort_points(jcam.euroc_camera(), jnp.asarray(uv)),
-           tcam.undistort_points(tcam.euroc_camera(), torch.from_numpy(uv)),
+           tcam.undistort_points(tcam.euroc_camera(device="cpu"), torch.from_numpy(uv)),
            rtol=1e-5, atol=1e-3)   # pixels: 1e-3 px is ~ulp(752) * 16
 
 
@@ -65,7 +65,7 @@ def test_distort_project_jacobian():
     rng = np.random.default_rng(5)
     Xc = np.concatenate([rng.normal(size=(200, 2)), rng.uniform(0.5, 8, (200, 1))],
                         -1).astype(np.float32)
-    jc, tc = jcam.euroc_camera(), tcam.euroc_camera()
+    jc, tc = jcam.euroc_camera(), tcam.euroc_camera(device="cpu")
     xn = (Xc[:, :2] / Xc[:, 2:]).astype(np.float32)
     _close(jcam.distort(jc, jnp.asarray(xn)), tcam.distort(tc, torch.from_numpy(xn)))
     for dist in (False, True):
@@ -100,7 +100,7 @@ def test_preintegrate_matches_padded_jax(seed):
     ba = np.array([0.1, 0.05, -0.03], np.float32)
     pj = _jax_preint(rows, bg, ba)
     pt = tpre.preintegrate(torch.from_numpy(rows), torch.from_numpy(bg),
-                           torch.from_numpy(ba), tpre.euroc_noise())
+                           torch.from_numpy(ba), tpre.euroc_noise(device="cpu"))
     for f in tpre.PreintState._fields:
         # cov entries are ~1e-12..1e-8: compare them relative to their scale
         atol = ATOL if f != "cov" else 1e-5 * float(np.abs(np.asarray(pj.cov)).max())
@@ -115,8 +115,8 @@ def test_preintegrate_padding_rows_are_noops():
     padded = np.zeros((40, 7), np.float32)
     padded[:len(rows)] = rows
     z = torch.zeros(3)
-    a = tpre.preintegrate(torch.from_numpy(rows), z, z, tpre.euroc_noise())
-    b = tpre.preintegrate(torch.from_numpy(padded), z, z, tpre.euroc_noise())
+    a = tpre.preintegrate(torch.from_numpy(rows), z, z, tpre.euroc_noise(device="cpu"))
+    b = tpre.preintegrate(torch.from_numpy(padded), z, z, tpre.euroc_noise(device="cpu"))
     for f in tpre.PreintState._fields:
         torch.testing.assert_close(getattr(a, f), getattr(b, f), rtol=1e-6, atol=1e-7)
 
@@ -133,8 +133,8 @@ def test_predict_navstate():
     gw = np.array([0, 0, -9.81], np.float32)
     out_j = jpre.predict_navstate(jnav.NavState(**ns), pj, jnp.asarray(gw))
     pre_np = jax.tree_util.tree_map(np.asarray, pj)
-    out_t = tpre.predict_navstate(convert.to_torch(tnav.NavState, ns),
-                                  convert.to_torch(tpre.PreintState, pre_np),
+    out_t = tpre.predict_navstate(convert.to_torch(tnav.NavState, ns, "cpu"),
+                                  convert.to_torch(tpre.PreintState, pre_np, "cpu"),
                                   torch.from_numpy(gw))
     for f in ("P", "V", "R"):
         _close(getattr(out_j, f), getattr(out_t, f), atol=1e-5)

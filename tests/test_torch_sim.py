@@ -41,7 +41,7 @@ def test_room_planes_identical(worlds):
 def test_render_within_one_grey_level(worlds, t):
     wj, wt = worlds
     cj = j_make_camera(*INTR, **DIST, width=320, height=240)
-    ct = t_make_camera(*INTR, **DIST, width=320, height=240)
+    ct = t_make_camera(*INTR, **DIST, width=320, height=240, device="cpu")
     P, R = JTraj().pose(t)
     img_j, z_j = wj.render(cj, R, P, with_depth=True)
     img_t, z_t = wt.render(ct, R, P, with_depth=True)

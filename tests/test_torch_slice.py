@@ -58,8 +58,8 @@ def _jax_cam(cam):
 @pytest.fixture(scope="module")
 def scene():
     seq = chip_smoke.make_sequence(P, seed=0)
-    cam = chip_smoke.profile_camera(P)
-    ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC)
+    cam = chip_smoke.profile_camera(P, "cpu")
+    ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device="cpu")
     m, n_kf = chip_smoke.build_map(seq, P, cam, ext, torch.device("cpu"))
     return SimpleNamespace(seq=seq, cam=cam, ext=ext, m=m, n_kf=n_kf)
 
@@ -74,7 +74,7 @@ def test_built_map_packs_consistently(scene):
 
 def test_convert_round_trip_keeps_dtypes():
     jm = jax.tree_util.tree_map(np.asarray, jms.empty_map(4, 32, 16))
-    tm = convert.to_torch(MapState, jm)
+    tm = convert.to_torch(MapState, jm, "cpu")
     assert tm.kf_desc.dtype == torch.int32 and tm.kf_pm1.dtype == torch.int8
     back = convert.to_numpy(tm)
     ref = jax.tree_util.tree_map(np.asarray, jm)._asdict()
@@ -87,7 +87,7 @@ def test_convert_round_trip_keeps_dtypes():
         else:
             np.testing.assert_array_equal(v, rv)
             assert v.dtype == rv.dtype, k
-    port_empty = convert.to_numpy(empty_map(4, 32, 16))
+    port_empty = convert.to_numpy(empty_map(4, 32, 16, device="cpu"))
     for k, v in port_empty.items():
         if not isinstance(v, dict):
             np.testing.assert_array_equal(v, ref[k])
@@ -121,7 +121,7 @@ def test_map_seeding_helpers(scene):
           np.full(F, -1.0, np.float32), words, pm1, valid)
     jm = jmapping.write_keyframe(jms.empty_map(P.max_kf, P.max_mp, F), 2,
                                  *[jnp.asarray(a) for a in kf])
-    tm = tmapping.write_keyframe(empty_map(P.max_kf, P.max_mp, F), 2,
+    tm = tmapping.write_keyframe(empty_map(P.max_kf, P.max_mp, F, device="cpu"), 2,
                                  *[convert._tensor(a, None) for a in kf])
     good = valid & (depth > 1e-3)
     jhost = SimpleNamespace(m=jm, cfg=SimpleNamespace(n_levels=P.n_levels), frame_id=7)

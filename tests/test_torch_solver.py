@@ -90,7 +90,7 @@ def test_reproj_factor():
     r_j = jfac.reproj_xyz(j_euroc(), jfac.extrinsics_from_Tbc(TBC), jnp.asarray(s["P0"]),
                           jnp.asarray(s["R0"]), jnp.asarray(s["Xw"]),
                           jnp.asarray(s["obs"]["uv"]))
-    r_t = tfac.reproj_xyz(t_euroc(), tfac.extrinsics_from_Tbc(TBC), _t(s["P0"]),
+    r_t = tfac.reproj_xyz(t_euroc(device="cpu"), tfac.extrinsics_from_Tbc(TBC, device="cpu"), _t(s["P0"]),
                           _t(s["R0"]), _t(s["Xw"]), _t(s["obs"]["uv"]))
     for a, b in zip(r_j, r_t):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-4, atol=1e-3)
@@ -125,11 +125,11 @@ def test_imu_factors():
     out_j = jfac.imu_prv(*[jnp.asarray(a) for a in args_j], jpre.PreintState(
         *[jnp.asarray(a) for a in pre]), gw)
     out_t = tfac.imu_prv(*[_t(a) for a in args_j],
-                         convert.to_torch(tpre.PreintState, pre), _t(gw))
+                         convert.to_torch(tpre.PreintState, pre, "cpu"), _t(gw))
     for a, b in zip(out_j, out_t):
         np.testing.assert_allclose(np.asarray(a), b.numpy(), rtol=1e-4, atol=1e-4)
     ij = np.asarray(jfac.imu_prv_info(jpre.PreintState(*[jnp.asarray(a) for a in pre])))
-    it = tfac.imu_prv_info(convert.to_torch(tpre.PreintState, pre)).numpy()
+    it = tfac.imu_prv_info(convert.to_torch(tpre.PreintState, pre, "cpu")).numpy()
     np.testing.assert_allclose(ij, it, rtol=1e-3, atol=1e-3 * np.abs(ij).max())
     np.testing.assert_allclose(
         np.asarray(jfac.bias_rw_info(jnp.asarray(pre.dT), 2e-5, 5e-3)),
@@ -152,8 +152,8 @@ def test_pose_only_visual(seed):
         jnp.asarray(s["P0"]), jnp.asarray(s["R0"]), jnp.asarray(s["Xw"]), jobs,
         j_euroc(), jfac.extrinsics_from_Tbc(TBC), iters=20)
     Pt, Rt, chi2t, nt = tba.pose_only_visual(
-        _t(s["P0"]), _t(s["R0"]), _t(s["Xw"]), _port_obs(s["obs"]), t_euroc(),
-        tfac.extrinsics_from_Tbc(TBC), iters=20)
+        _t(s["P0"]), _t(s["R0"]), _t(s["Xw"]), _port_obs(s["obs"]), t_euroc(device="cpu"),
+        tfac.extrinsics_from_Tbc(TBC, device="cpu"), iters=20)
     assert np.abs(np.asarray(Pj) - Pt.numpy()).max() < 1e-4
     assert _rot_err(np.asarray(Rj), Rt.numpy()) < 1e-4
     assert abs(int(nj) - int(nt)) <= 1
@@ -180,13 +180,13 @@ def test_pose_only_vi(compute_marg):
         ns_start, ns_last, jpre_t, jnp.asarray(Xw), jobs, j_euroc(),
         jfac.extrinsics_from_Tbc(TBC), gw, jprior, info_prv, info_bias, iters=20,
         compute_marg=compute_marg)
-    t_last = convert.to_torch(tnav.NavState, ns_last)
+    t_last = convert.to_torch(tnav.NavState, ns_last, "cpu")
     tprior = tbavi.PriorFactor(cam=torch.zeros((), dtype=torch.int64), ns0=t_last,
                                info=_t(prior_info), valid=torch.ones(()))
-    tpre_t = convert.to_torch(tpre.PreintState, pre)
+    tpre_t = convert.to_torch(tpre.PreintState, pre, "cpu")
     nst, chi2t, nt, Ht = tbavi.pose_only_vi(
-        convert.to_torch(tnav.NavState, ns_start), t_last, tpre_t, _t(Xw),
-        _port_obs(s["obs"]), t_euroc(), tfac.extrinsics_from_Tbc(TBC), _t(gw), tprior,
+        convert.to_torch(tnav.NavState, ns_start, "cpu"), t_last, tpre_t, _t(Xw),
+        _port_obs(s["obs"]), t_euroc(device="cpu"), tfac.extrinsics_from_Tbc(TBC, device="cpu"), _t(gw), tprior,
         tfac.imu_prv_info(tpre_t), tfac.bias_rw_info(tpre_t.dT, 2e-5, 5e-3), iters=20,
         compute_marg=compute_marg)
     assert np.abs(np.asarray(nsj.P) - nst.P.numpy()).max() < 1e-4
