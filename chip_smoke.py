@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the port's Mono+IMU tracking and mapping on one NVIDIA GPU.
+"""Drive the port's Mono+IMU bootstrap, tracking and mapping on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -18,12 +18,12 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     camera, Tbc, IMU noise and biases; seed 0; no photometric hardening),
     seeds a 16384-point map in localization-mode fashion (a keyframe every
     10th frame at the ground-truth pose, points from the rendered depth),
-    then runs `tracking.frame_pipeline_vi` on every frame on cuda, with the
+    then runs `tracking.frame_pipeline_vi` on 40 frames on cuda, with the
     state carried synchronously. Checks the kernel's launch count, the
     inliers of every frame, the position RMSE against ground truth, and
     kernel == twin on the real search inputs of the first frames;
  4. path 2, track and map: the same clone, but only keyframe 0 is seeded
-    (ground-truth pose, points from the rendered depth). Frames 1-80 are
+    (ground-truth pose, points from the rendered depth). Frames 1-40 are
     tracked against the live map; every 10th tracked frame becomes a
     keyframe (its tracked NavState and associations, the preintegration of
     the IMU rows since the last keyframe) and runs one keyframe event:
@@ -34,12 +34,31 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     summary line. Checks: every BA cost finite and not rising, points
     triangulated in at least half of the events, no landmark overflow, no
     frame under fb_min_inliers, position RMSE under RMSE_LIMIT_MAP, kernel
-    == twin on real searches of this path.
+    == twin on real searches of this path;
+ 5. path 3, bootstrap: the same clone from raw frames, nothing seeded from
+    ground truth (no depth, pose, bias or gravity). Frame 0 is the two-view
+    reference; `system.try_initialize` on every next frame until it builds
+    keyframes 0 and 1 and the first points (median depth 1) and runs the
+    two-view BA; then `tracking_ctl.track_visual` per frame
+    (`tracking.frame_pipeline_visual`, `need_new_kf` -> `create_keyframe`
+    -> the visual `keyframe_event`, `viinit_ctl.maybe_vi_init` with
+    vi_init_time = 5 s); after the accepted VI initialization (whole-map
+    visual BA, scale / gravity / bias solve, re-preintegration, rescale,
+    whole-map VI BA) 20 frames of `tracking_ctl.track_vi`. One line for the
+    two-view init, one per event, one per VI-init attempt, two summary
+    lines. Fails when: two-view init is not accepted by frame 20, a frame is
+    LOST, VI init is not accepted by frame 160, a BA cost is not finite or
+    rises, the kernel launched fewer than twice a tracked frame, kernel !=
+    twin on a recorded visual and VI frame, or the result leaves the gates
+    of the JAX package's own ~5 s initialization test (gyro bias of keyframe
+    0, gravity direction, post-init ATE and alignment scale against ground
+    truth).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -58,7 +77,9 @@ from mc_slam_tpu_torch.frontend.match_cuda import (BIG, hamming_top2_windowed,
 from mc_slam_tpu_torch.frontend.orb import pack_bits
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import euroc_noise
-from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl, system, tracking
+from mc_slam_tpu_torch.eval.ate import ate_rmse, horn_align
+from mc_slam_tpu_torch.pipeline import (mapping, mapping_ctl, system, tracking,
+                                        tracking_ctl)
 from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
 from mc_slam_tpu_torch.slam_map.mapstate import empty_map
 from mc_slam_tpu_torch.solver import ba_vi, factors
@@ -95,7 +116,7 @@ class Profile:
     max_mp: int = 16384
     max_kf: int = 512
     iters: int = 20
-    n_frames: int = 81          # frame 0 seeds the state; 80 are tracked
+    n_frames: int = 41          # frame 0 seeds the state; 40 are tracked
     kf_every: int = 10
     fps: float = 20.0
     tex_size: int = 2048
@@ -103,9 +124,19 @@ class Profile:
     local_window: int = 20      # BA window padded to local_window + 4 slots
     max_new: int = 256          # new points per neighbour pair
     ba_Pw: int = 4096           # landmark slots of the window BA
+    # path 3 (bootstrap): SlamConfig's defaults but for the init time
+    vi_init_time: float = 5.0   # s; examples/run_euroc.py:55 (config/euroc.yaml: 15)
+    init_max_frame: int = 20    # two-view init must be accepted by this frame
+    boot_max_frame: int = 160   # VI init must be accepted by this frame
+    n_vi_frames: int = 20       # frames tracked with the IMU after VI init
 
 
 EUROC = Profile()
+EUROC_BOOT_FRAMES = EUROC.boot_max_frame + EUROC.n_vi_frames + 1
+ATE_LIMIT_BOOT = 0.08       # m, path 3: post-init ATE after similarity alignment
+SCALE_TOL_BOOT = 0.35       # path 3: |alignment scale - 1| of the post-init positions
+GRAVITY_COS_BOOT = 0.995    # path 3: cosine between estimated and true gravity
+BG_TOL_BOOT = (8e-3, 8e-3, 2.5e-2)   # path 3: gyro bias of keyframe 0, per axis
 
 
 def profile_camera(p: Profile, device=None):
@@ -287,7 +318,7 @@ def seed_keyframe0(seq: Sequence, p: Profile, cam, ext, noise, device):
     its points from the rendered depth (SlamSystem._initialize_from_depth).
     Returns (m, MappingState)."""
     m = empty_map(p.max_kf, p.max_mp, p.n_feat, device=device)
-    st = mapping_ctl.MappingState()
+    st = mapping_ctl.MappingState(vi_inited=True)
     f = extractor.extract(torch.from_numpy(seq.imgs[0]).to(device),
                           n_features=p.n_feat, n_levels=p.n_levels)
     uv = tcam.undistort_points(cam, f.xy)
@@ -308,13 +339,36 @@ def seed_keyframe0(seq: Sequence, p: Profile, cam, ext, noise, device):
     return m, st
 
 
+def count_syncs(caught):
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+@contextlib.contextmanager
+def sync_watch(cuda: bool):
+    """Record the warnings of torch.cuda.set_sync_debug_mode("warn") (one for
+    every call that makes the host wait for the device); yields their list."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield caught
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+
+
 class EventTimer:
     """CUDA-event marks of one keyframe event: ms between "pre", "ba", "post"
     and "end". On a CPU run the marks are host clock readings."""
 
-    def __init__(self, cuda: bool):
+    def __init__(self, cuda: bool, caught=None):
+        """caught: the list of a `sync_watch`; a mark then also notes how many
+        synchronizing calls were flagged so far."""
         self.cuda = cuda
         self.marks = []
+        self.caught = caught
+        self.flagged = []
 
     def __call__(self, name):
         if self.cuda:
@@ -323,6 +377,13 @@ class EventTimer:
         else:
             e = time.perf_counter()
         self.marks.append((name, e))
+        if self.caught is not None:
+            self.flagged.append(count_syncs(self.caught))
+
+    def syncs(self):
+        """Flagged synchronizing calls between consecutive marks."""
+        return {a: n1 - n0 for (a, _), n0, n1 in
+                zip(self.marks, self.flagged, self.flagged[1:])}
 
     def ms(self):
         if self.cuda:
@@ -397,32 +458,14 @@ def run_track_and_map(seq: Sequence, p: Profile, cam, ext, device, recorder=None
             imu_since_kf = []
             if on_event is not None:
                 on_event(m, st, i)
-            timer = EventTimer(cuda)
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                if cuda:
-                    torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    m, res = mapping_ctl.keyframe_event(m, st, cfg, i, cam, ext, gw,
-                                                        noise, timer=timer)
-                finally:
-                    if cuda:
-                        torch.cuda.set_sync_debug_mode("default")
-            n_syncs = sum("synchroniz" in str(w.message) for w in caught)
-            # ONE device->host read per event: its counters and the
-            # covisibility row that the next event's observer choice uses
-            scal = torch.stack([x.to(torch.float32) for x in (
-                res.n_created, res.n_fused, res.n_culled, res.ba.cost0, res.ba.cost,
-                res.ba.n_landmarks, res.ba.overflow, res.stats[3])])
-            host = torch.cat([scal, res.stats[0]]).cpu().numpy()
-            st.covis_row = host[8:]
-            ms = timer.ms()
-            events.append(dict(
-                frame=i, slot=slot, n_created=int(host[0]), n_fused=int(host[1]),
-                n_culled=int(host[2]), cost0=float(host[3]), cost=float(host[4]),
-                n_landmarks=int(host[5]), overflow=int(host[6]), n_active=int(host[7]),
-                pre_ms=ms["pre"], ba_ms=ms["ba"], post_ms=ms["post"], syncs=n_syncs,
-                costs=res.ba.costs.cpu().numpy()))
+            with sync_watch(cuda) as caught:
+                timer = EventTimer(cuda, caught)
+                m, res = mapping_ctl.keyframe_event(m, st, cfg, i, cam, ext, gw,
+                                                    noise, timer=timer)
+            # after the event: its counters, and the covisibility row and
+            # well-observed count that the next event's choices use
+            events.append(_event_record(i, slot, res, timer))
+            mapping_ctl.note_event_stats(st, res.stats[0].cpu().numpy(), res.stats[4])
             ns = mapping_ctl.keyframe_navstate(m, slot)
             prior = ba_vi.PriorFactor(cam=c0, ns0=ns, info=fresh_1e3, valid=c1)
     finally:
@@ -452,6 +495,245 @@ def check_track_and_map(res, p: Profile):
                              f"(< {p.fb_min_inliers})")
     if not np.isfinite(res["P"]).all() or res["rmse"] >= RMSE_LIMIT_MAP:
         raise AssertionError(f"position RMSE {res['rmse']} m (limit {RMSE_LIMIT_MAP} m)")
+
+
+def _event_record(frame, slot, res, timer):
+    """An event's numbers on the host (one copy) with its stage times."""
+    host = torch.stack([x.to(torch.float32) for x in (
+        res.n_created, res.n_fused, res.n_culled, res.ba.cost0, res.ba.cost,
+        res.ba.n_landmarks, res.ba.overflow, res.stats[3])]).cpu().numpy()
+    ms, syncs = timer.ms(), timer.syncs()
+    return dict(frame=frame, slot=slot, n_created=int(host[0]), n_fused=int(host[1]),
+                n_culled=int(host[2]), cost0=float(host[3]), cost=float(host[4]),
+                n_landmarks=int(host[5]), overflow=int(host[6]), n_active=int(host[7]),
+                pre_ms=ms["pre"], ba_ms=ms["ba"], post_ms=ms["post"],
+                syncs=sum(syncs.get(k, 0) for k in ("pre", "ba", "post")),
+                costs=res.ba.costs.cpu().numpy())
+
+
+def _ba_record(stats, ms):
+    """A whole-map BA's numbers on the host."""
+    host = torch.stack([stats.cost0, stats.cost, stats.n_landmarks.to(torch.float32)
+                        ]).cpu().numpy()
+    return dict(cost0=float(host[0]), cost=float(host[1]), n_landmarks=int(host[2]),
+                ms=ms)
+
+
+def run_bootstrap(seq: Sequence, p: Profile, cam, ext, device, recorder=None):
+    """Path 3: the port started from raw frames. Nothing comes from ground
+    truth: frame 0 is the two-view reference, every next frame calls
+    `system.try_initialize` (200 8-point samples from a seeded generator)
+    until it builds the first two keyframes; then `tracking_ctl.track_visual`
+    per frame (visual tracking, keyframe decisions, visual keyframe events,
+    the VI-init attempt with `vi_init_time` = p.vi_init_time) until VI init is
+    accepted, and `tracking_ctl.track_vi` for p.n_vi_frames more frames.
+    Returns a dict: the init record, per-frame summaries, per-event and
+    per-attempt records, the composed trajectory, the final map and states.
+    Raises when a frame is LOST or an acceptance deadline passes."""
+    cuda = torch.device(device).type == "cuda"
+    noise = euroc_noise(device=device)
+    cfg = mapping_ctl.MappingConfig(
+        n_levels=p.n_levels, local_window=p.local_window, max_new=p.max_new,
+        ba_Pw=p.ba_Pw, vi_init_time=p.vi_init_time)
+    m = empty_map(p.max_kf, p.max_mp, p.n_feat, device=device)
+    st = mapping_ctl.MappingState()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    img = lambda i: torch.from_numpy(seq.imgs[i]).to(device)
+    imu = lambda i: torch.from_numpy(np.ascontiguousarray(seq.imu[i])).to(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    orig = match_cuda.hamming_top2_windowed
+    if recorder is not None:
+        match_cuda.hamming_top2_windowed = recorder
+    try:
+        # ---- monocular initialization ----
+        def extract(i):
+            f = extractor.extract(img(i), n_features=p.n_feat, n_levels=p.n_levels)
+            return f, tcam.undistort_points(cam, f.xy)
+
+        f0, uv0 = extract(0)
+        ref, rows, i, init = (f0, uv0, float(seq.times[0])), [], 0, None
+        while init is None:
+            i += 1
+            if i > p.init_max_frame:
+                raise AssertionError(f"two-view initialization not accepted by frame "
+                                     f"{p.init_max_frame}")
+            f1, uv1 = extract(i)
+            rows.append(imu(i))
+            sync()
+            t0 = time.perf_counter()
+            with sync_watch(cuda) as caught:
+                m, att = system.try_initialize(m, st, cfg, cam, ext, noise, ref, f1, uv1,
+                                               float(seq.times[i]), i, torch.cat(rows),
+                                               generator=gen)
+                sync()
+            if att.reset_ref:
+                ref, rows = (f1, uv1, float(seq.times[i])), []
+            if att.ok:
+                tv = att.two_view
+                host = torch.stack([x.to(torch.float32) for x in (
+                    tv.used_h, tv.n_good, tv.score_h, tv.score_f)]).cpu().numpy()
+                init = dict(frame=i, n_matches=att.n_matches, used_h=bool(host[0]),
+                            n_good=int(host[1]), score_h=float(host[2]),
+                            score_f=float(host[3]), ms=(time.perf_counter() - t0) * 1e3,
+                            syncs=count_syncs(caught),
+                            ba=_ba_record(att.ba, float("nan")))
+        ts = tracking_ctl.start_tracking(m, st, cfg.g_mag, float(seq.times[i]))
+        ts.traj.append(tracking._traj_row(m, ts.P, ts.R, st.last_kf_slot),
+                       float(seq.times[i]), st.last_kf_slot, st.kf_id_host[st.last_kf_slot])
+
+        # ---- visual tracking and mapping until VI init, then VI frames ----
+        frames, events, attempts = [], [], []
+        n_vi = 0
+        i_accept = None
+        while n_vi < p.n_vi_frames:
+            i += 1
+            if i_accept is None and i > p.boot_max_frame:
+                raise AssertionError(f"VI initialization not accepted by frame "
+                                     f"{p.boot_max_frame}; attempts: {attempts}")
+            if recorder is not None:
+                recorder.frame = i
+                if not frames or (st.vi_inited and n_vi == 0):
+                    recorder.keep_frames.add(i)   # the first visual, the first VI frame
+            t_i = float(seq.times[i])
+            was_vi = st.vi_inited
+            sync()
+            t0 = time.perf_counter()
+            with sync_watch(cuda) as caught:
+                ev_timer = EventTimer(cuda, caught)
+                vi_timer = EventTimer(cuda, caught)
+                if was_vi:
+                    m, out = tracking_ctl.track_vi(
+                        m, st, cfg, ts, img(i), t_i, i, imu(i), cam, ext, noise,
+                        n_features=p.n_feat, iters=p.iters,
+                        fb_min_inliers=p.fb_min_inliers, event_timer=ev_timer)
+                    n_vi += 1
+                else:
+                    m, out = tracking_ctl.track_visual(
+                        m, st, cfg, ts, img(i), t_i, i, imu(i), cam, ext, noise,
+                        n_features=p.n_feat, iters=p.iters, event_timer=ev_timer,
+                        vi_mark=vi_timer)
+                sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            if out.state != tracking_ctl.OK:
+                raise AssertionError(f"frame {i} LOST with {out.n_inliers} inliers "
+                                     f"({'VI' if was_vi else 'visual'} tracking)")
+            attempted = out.vi is not None and out.vi.attempted
+            frames.append(dict(frame=i, vi=was_vi, n_inliers=out.n_inliers,
+                               used_fb=out.used_fallback, ms=ms, syncs=count_syncs(caught),
+                               plain=out.keyframe is None and not attempted))
+            if out.event is not None:
+                e = _event_record(i, out.keyframe, out.event, ev_timer)
+                e["vi"] = was_vi
+                events.append(e)
+            if attempted:
+                v = out.vi
+                vms, vsy = vi_timer.ms(), vi_timer.syncs()
+                a = dict(frame=i, t=t_i, n_kf=v.n_kf, scale=v.scale,
+                         scale_star=v.scale_star, cond=v.cond, accepted=v.accepted,
+                         reason=v.reason, bg=v.bg.tolist(), ba=v.ba.tolist(), ms=vms,
+                         syncs=vsy, total_ms=sum(vms.values()),
+                         total_syncs=sum(vsy.values()),
+                         ba_visual=_ba_record(v.ba_visual, vms.get("gba_visual")))
+                if v.accepted:
+                    a["ba_vi"] = _ba_record(v.ba_vi, vms.get("gba_vi"))
+                    a["gw"] = v.gw.cpu().numpy().tolist()
+                    i_accept = i
+                attempts.append(a)
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+    traj = tracking_ctl.trajectory(m, ts)
+    return dict(init=init, frames=frames, events=events, attempts=attempts,
+                i_accept=i_accept, last_frame=i, traj=traj, m=m, st=st, ts=ts,
+                gw=ts.gw.cpu().numpy(), bg0=m.kf_ns.bg[st.kf_slots[0]].cpu().numpy(),
+                bg0_full=(m.kf_ns.bg + m.kf_ns.dbg)[st.kf_slots[0]].cpu().numpy())
+
+
+@contextlib.contextmanager
+def capture_bootstrap_states():
+    """While active, record the states a bootstrap run hands to its stages
+    (for the parity tests and tools/profile_event.py, which replay single
+    stages on them). Yields a dict: "events" holds (MapState, MappingState,
+    frame) right after each keyframe's insertion, before its event;
+    "vi_attempts" the (MapState, MappingState, t, TrajStore) of every
+    maybe_vi_init call past its time gate; "need_kf" one (MappingState fields
+    before, frame, inliers, decision, reference count after, MapState or
+    None) per keyframe decision, the MapState kept where the reference count
+    was read from the device."""
+    import copy
+    from mc_slam_tpu_torch.pipeline import viinit_ctl
+    captured = dict(events=[], vi_attempts=[], need_kf=[])
+    orig = (mapping_ctl.keyframe_event, viinit_ctl.maybe_vi_init, tracking_ctl.need_new_kf)
+
+    def spy_event(m, st, cfg, frame_id, *a, **k):
+        captured["events"].append((m, copy.deepcopy(st), frame_id))
+        return orig[0](m, st, cfg, frame_id, *a, **k)
+
+    def spy_vi(m, st, cfg, t, *a, traj=None, **k):
+        if st.first_kf_time is not None and t - st.first_kf_time >= cfg.vi_init_time:
+            captured["vi_attempts"].append((m, copy.deepcopy(st), t, copy.deepcopy(traj)))
+        return orig[1](m, st, cfg, t, *a, traj=traj, **k)
+
+    def spy_need(m, st, cfg, fid, n_in):
+        before = dict(last_kf_frame=st.last_kf_frame, ref_tracked=st.ref_tracked,
+                      kf_slots=list(st.kf_slots), last_kf_slot=st.last_kf_slot)
+        out = orig[2](m, st, cfg, fid, n_in)
+        captured["need_kf"].append((before, fid, n_in, out, st.ref_tracked,
+                                    m if before["ref_tracked"] is None else None))
+        return out
+
+    mapping_ctl.keyframe_event, viinit_ctl.maybe_vi_init, tracking_ctl.need_new_kf = (
+        spy_event, spy_vi, spy_need)
+    try:
+        yield captured
+    finally:
+        mapping_ctl.keyframe_event, viinit_ctl.maybe_vi_init, tracking_ctl.need_new_kf = orig
+
+
+def check_bootstrap(res, seq: Sequence, p: Profile):
+    """Path 3's checks against ground truth, by the gates of the JAX
+    package's own ~5 s initialization test (tests/test_e2e_vi.py); raises on
+    the first that fails. Returns the measured values."""
+    bas = [("two-view BA", res["init"]["ba"])]
+    bas += [(f"event at frame {e['frame']}", e) for e in res["events"]]
+    for a in res["attempts"]:
+        bas.append((f"whole-map visual BA at frame {a['frame']}", a["ba_visual"]))
+        if "ba_vi" in a:
+            bas.append((f"whole-map VI BA at frame {a['frame']}", a["ba_vi"]))
+    for name, b in bas:
+        if not (np.isfinite(b["cost0"]) and np.isfinite(b["cost"])) or b["cost"] > b["cost0"]:
+            raise AssertionError(f"{name}: BA cost {b['cost0']} -> {b['cost']}")
+    for e in res["events"]:
+        if e["overflow"] != 0:
+            raise AssertionError(f"event at frame {e['frame']}: {e['overflow']} "
+                                 f"landmarks past Pw were dropped from the window BA")
+    bg_err = np.abs(res["bg0"] - TRUE_BG)
+    if not (bg_err <= np.asarray(BG_TOL_BOOT)).all():
+        raise AssertionError(f"gyro bias of keyframe 0 {res['bg0']} (true {TRUE_BG})")
+    t_est = np.asarray([x[0] for x in res["traj"]])
+    P_est = np.asarray([x[1] for x in res["traj"]])
+    post = t_est > seq.times[res["i_accept"]] - 1e-6
+    stats = ate_rmse(t_est[post], P_est[post], seq.times, seq.P, with_scale=True)
+    full = ate_rmse(t_est, P_est, seq.times, seq.P, with_scale=True)
+    if not stats["rmse"] < ATE_LIMIT_BOOT:
+        raise AssertionError(f"post-init ATE {stats}")
+    if not abs(stats["scale"] - 1.0) < SCALE_TOL_BOOT:
+        raise AssertionError(f"metric scale off: alignment scale {stats['scale']}")
+    # gravity: the bootstrap world is keyframe 0's camera frame; the rotation
+    # that aligns the WHOLE estimated trajectory with ground truth maps it
+    idx = [int(round(t * p.fps)) for t in t_est]
+    _, R_align, _ = horn_align(P_est, seq.P[idx], with_scale=True)
+    g = R_align @ res["gw"]
+    cos = float(-g[2] / np.linalg.norm(g))
+    if not cos > GRAVITY_COS_BOOT:
+        raise AssertionError(f"gravity misaligned: cos {cos}")
+    return dict(bg_err=bg_err.tolist(), ate_post_m=stats["rmse"], scale_post=stats["scale"],
+                n_post=stats["n"], ate_all_m=full["rmse"], scale_all=full["scale"],
+                gravity_cos=cos)
 
 
 def event_line(e):
@@ -655,14 +937,18 @@ def main():
     # ---- phase 3: path 1, localization against a ground-truth map ----
     p = EUROC
     t0 = time.time()
-    seq = make_sequence(p, seed=0)
+    seq_boot = make_sequence(dataclasses.replace(p, n_frames=EUROC_BOOT_FRAMES), seed=0)
+    seq = dataclasses.replace(seq_boot, imgs=seq_boot.imgs[:p.n_frames],
+                              depths=seq_boot.depths[:p.n_frames],
+                              imu=seq_boot.imu[:p.n_frames])
     cam = profile_camera(p, dev)
     ext = factors.extrinsics_from_Tbc(TBC, device=dev)
     m, n_kf = build_map(seq, p, cam, ext, dev)
     n_pts = int(m.mp_active.sum())
     check_pack(m.mp_desc, m.mp_pm1)
     check_pack(m.kf_desc.reshape(-1, 8), m.kf_pm1.reshape(-1, 256))
-    _phase("map", f"{p.n_frames} frames {p.width}x{p.height} rendered, {n_kf} "
+    _phase("map", f"{EUROC_BOOT_FRAMES} frames {p.width}x{p.height} rendered, the first "
+                  f"{p.n_frames} of them for paths 1 and 2; {n_kf} "
                   f"keyframes, {n_pts}/{p.max_mp} map points "
                   f"({time.time() - t0:.1f} s)")
     # warm-up pass (allocator, cuBLAS/cuSOLVER handles) on a copy of the map,
@@ -703,7 +989,7 @@ def main():
     # ---- phase 4: path 2, track and map ----
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec2 = SearchRecorder(keep_frames={0, 39, 79}, timed=False)
+    rec2 = SearchRecorder(keep_frames={0, 19, 39}, timed=False)
     hamming_top2_windowed.launches = 0
     t0 = time.time()
     res2 = run_track_and_map(seq, p, cam, ext, dev, recorder=rec2)
@@ -730,12 +1016,73 @@ def main():
     check_track_and_map(res2, p)
     err, n_real2 = _real_search_check(rec2)
     max_err = max(max_err, err)
-    _phase("path2", f"kernel == twin on the {n_real2} real searches of frames 1, 40 and 80")
+    _phase("path2", f"kernel == twin on the {n_real2} real searches of frames 1, 20 and 40")
+
+    del res2["m"], rec2
+
+    # ---- phase 5: path 3, bootstrap from raw frames to VI tracking ----
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec3 = SearchRecorder(keep_frames=(), timed=False)
+    hamming_top2_windowed.launches = 0
+    t0 = time.time()
+    res3 = run_bootstrap(seq_boot, p, cam, ext, dev, recorder=rec3)
+    launches_boot = hamming_top2_windowed.launches
+    wall3 = time.time() - t0
+    peak3_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    ini = res3["init"]
+    _phase("init", f"two-view initialization accepted at frame {ini['frame']}: "
+                   f"{ini['n_matches']} matches, model {'H' if ini['used_h'] else 'F'} "
+                   f"(scores H {ini['score_h']:.0f} F {ini['score_f']:.0f}), {ini['n_good']} "
+                   f"points; two-view BA cost {ini['ba']['cost0']:.1f} -> "
+                   f"{ini['ba']['cost']:.1f}; {ini['ms']:.0f} ms, {ini['syncs']} flagged syncs")
+    for e in res3["events"]:
+        _phase("event", ("VI " if e["vi"] else "visual ") + event_line(e))
+    for a in res3["attempts"]:
+        _phase("vi-init", f"frame {a['frame']} t {a['t']:.2f} s, {a['n_kf']} keyframes: scale "
+                          f"{a['scale']:.4f} scale* {a['scale_star']:.4f} cond {a['cond']:.0f} "
+                          f"-> {a['reason']}; bg {np.round(a['bg'], 5).tolist()} ba "
+                          f"{np.round(a['ba'], 4).tolist()}; ms "
+                          f"{ {k: round(v, 1) for k, v in a['ms'].items()} }; flagged syncs "
+                          f"{a['total_syncs']}; whole-map visual BA cost "
+                          f"{a['ba_visual']['cost0']:.1f} -> {a['ba_visual']['cost']:.1f}"
+                          + (f"; whole-map VI BA cost {a['ba_vi']['cost0']:.1f} -> "
+                             f"{a['ba_vi']['cost']:.1f}" if "ba_vi" in a else ""))
+    fr = res3["frames"]
+    vis_ms = [f["ms"] for f in fr if not f["vi"] and f["plain"]]
+    vi_ms = [f["ms"] for f in fr if f["vi"] and f["plain"]]
+    n_boot = len(fr)
+    ev3 = res3["events"]
+    ev3_ms = [e["pre_ms"] + e["ba_ms"] + e["post_ms"] for e in ev3 if not e["vi"]]
+    measured = check_bootstrap(res3, seq_boot, p)
+    _phase("path3", f"{n_boot} frames tracked from raw frames in {wall3:.1f} s: VI init "
+                    f"accepted at frame {res3['i_accept']}, {len(res3['st'].kf_slots)} "
+                    f"keyframes, {len(ev3)} events, {len(res3['attempts'])} VI-init attempts; "
+                    f"launches {launches_boot}; inliers min "
+                    f"{min(f['n_inliers'] for f in fr)}; fallbacks "
+                    f"{sum(f['used_fb'] for f in fr)}; ms/frame visual median "
+                    f"{np.median(vis_ms):.1f} p90 {np.percentile(vis_ms, 90):.1f}, VI median "
+                    f"{np.median(vi_ms):.1f}; ms/visual event median {np.median(ev3_ms):.1f}; "
+                    f"peak device memory {peak3_mb:.0f} MiB")
+    _phase("path3", f"gyro bias error of keyframe 0 {np.round(measured['bg_err'], 5).tolist()} "
+                    f"(limits {list(BG_TOL_BOOT)}); gravity cos {measured['gravity_cos']:.5f} "
+                    f"(> {GRAVITY_COS_BOOT}); post-init ATE {measured['ate_post_m'] * 1e3:.2f} mm "
+                    f"over {measured['n_post']} frames (< {ATE_LIMIT_BOOT * 1e3:.0f}), alignment "
+                    f"scale {measured['scale_post']:.4f} (within {SCALE_TOL_BOOT} of 1); whole "
+                    f"trajectory ATE {measured['ate_all_m'] * 1e3:.2f} mm, scale "
+                    f"{measured['scale_all']:.4f}")
+    if launches_boot < 2 * n_boot:
+        raise AssertionError(f"kernel launched {launches_boot} times for {n_boot} frames")
+    err, n_real3 = _real_search_check(rec3)
+    max_err = max(max_err, err)
+    _phase("path3", f"kernel == twin on the {n_real3} real searches of one visual frame "
+                    f"and one VI frame")
 
     bound_ms, bound_by, bound_detail = bounds[15.0]
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches_loc + launches_map,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches_loc + launches_map + launches_boot,
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
@@ -757,6 +1104,16 @@ def main():
                         "event_ms_median": float(np.median(ev_ms)),
                         "frame_ms_median": float(np.median(res2["frame_ms"])),
                         "peak_device_MiB": peak_mb},
+              "path3": {"frames": n_boot, "launches": launches_boot, "init": ini,
+                        "events": [strip(e) for e in ev3], "attempts": res3["attempts"],
+                        "accepted_at_frame": res3["i_accept"], "measured": measured,
+                        "frame_ms_visual_median": float(np.median(vis_ms)),
+                        "frame_ms_visual_p90": float(np.percentile(vis_ms, 90)),
+                        "frame_ms_vi_median": float(np.median(vi_ms)),
+                        "event_ms_visual_median": float(np.median(ev3_ms)),
+                        "frame_syncs_median": float(np.median(
+                            [f["syncs"] for f in fr if f["plain"]])),
+                        "peak_device_MiB": peak3_mb, "seconds": wall3},
               "seconds": time.time() - t_start}
     print(json.dumps(detail), flush=True)
     print(json.dumps(record), flush=True)

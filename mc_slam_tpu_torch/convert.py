@@ -3,11 +3,17 @@
 The JAX side is handed over as dicts or NamedTuples of numpy arrays (the
 caller flattens JAX arrays with `np.asarray`); this module never sees a JAX
 type. Conversion is field by field, by the port class's field names and
-annotations, with dtypes kept exactly (float32, int32, bool, int8). The one
-change of dtype: packed descriptor words (uint32 on the JAX side, fields in
+annotations, with dtypes kept exactly (float32, int32, bool, int8). Two
+changes of dtype: packed descriptor words (uint32 on the JAX side, fields in
 PACKED_FIELDS) become int32 tensors holding the same bits, because
 torch.uint32 has few operators, on CUDA least of all; `to_numpy` turns them
-back into uint32.
+back into uint32. And the index columns of the solver tables (INDEX_FIELDS:
+VisualObs.cam / pt, IMUEdges.i / j, PriorFactor.cam) become int64, what
+torch gathers with.
+
+Any NamedTuple of the port converts: MapState, Features, NavState,
+PreintState, Camera, Extrinsics, PriorFactor, and the bootstrap's
+TwoViewResult, VIInitResult, VisualObs and IMUEdges (nested PreintState).
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 from mc_slam_tpu_torch.device import resolve
 
 PACKED_FIELDS = frozenset({"desc", "kf_desc", "mp_desc"})
+INDEX_FIELDS = frozenset({"cam", "pt", "i", "j"})
 
 
 def _is_namedtuple_class(t):
@@ -59,6 +66,8 @@ def to_torch(cls, src, device=None):
             out[f] = int(v)
         else:
             out[f] = _tensor(v, device)
+            if f in INDEX_FIELDS:
+                out[f] = out[f].to(torch.int64)
     return cls(**out)
 
 

@@ -125,3 +125,35 @@ def search_by_projection(proj_uv, proj_valid, proj_level, proj_desc, proj_pm1,
         ok = rotation_consistency_mask(proj_angle, feat_angle, idx, ok,
                                        participate=proj_angle_valid)
     return idx, best, ok
+
+
+def search_for_initialization(f0_uv, f0_pm1, f0_valid, f1_uv, f1_pm1, f1_valid,
+                              radius=100.0, max_dist=TH_LOW, ratio=0.9,
+                              f0_angle=None, f1_angle=None):
+    """Frame-frame matching for the monocular two-view bootstrap
+    (ORBmatcher::SearchForInitialization): window around the same position,
+    low threshold, ratio test, dedup, rotation-consistency prune when both
+    angle tables are given. Returns (idx (N0,) int64, best, ok)."""
+    dist = hamming_matrix(f0_pm1, f1_pm1)
+    gate = window_mask(f0_uv, f1_uv, radius)
+    gate = gate & f0_valid[:, None] & f1_valid[None, :]
+    idx, best, ok = match_nn(dist, gate, max_dist=max_dist, ratio=ratio)
+    ok = resolve_duplicates(idx, best, ok, f1_uv.shape[0])
+    if f0_angle is not None and f1_angle is not None:
+        ok = rotation_consistency_mask(f0_angle, f1_angle, idx, ok)
+    return idx, best, ok
+
+
+def mutual_match(pm1_a, valid_a, pm1_b, valid_b, max_dist=TH_LOW, ratio=0.75,
+                 angle_a=None, angle_b=None):
+    """Unwindowed mutual nearest-neighbour matching (where the reference uses
+    SearchByBoW), with the optional rotation-histogram prune."""
+    dist = hamming_matrix(pm1_a, pm1_b)
+    gate = valid_a[:, None] & valid_b[None, :]
+    idx_ab, best_ab, ok_ab = match_nn(dist, gate, max_dist=max_dist, ratio=ratio)
+    _, idx_ba = torch.min(torch.where(gate, dist, BIG).T, dim=1)
+    mutual = idx_ba[idx_ab] == torch.arange(pm1_a.shape[0], device=idx_ab.device)
+    ok = ok_ab & mutual
+    if angle_a is not None and angle_b is not None:
+        ok = rotation_consistency_mask(angle_a, angle_b, idx_ab, ok)
+    return idx_ab, best_ab, ok

@@ -125,6 +125,20 @@ def preintegrate(samples, bg, ba, noise: IMUNoise,
     return st
 
 
+def preintegrate_batch(samples, bg, ba, noise: IMUNoise) -> PreintState:
+    """Preintegrate B row sequences at once: samples (B, T, 7), each sequence
+    padded to T with dt == 0 rows (no-ops of the recursion), all at the same
+    biases. T updates over the batch instead of one per row and sequence:
+    what re-integrating every keyframe's rows at VI init needs."""
+    B, T, _ = samples.shape
+    st = preint_identity((B,), dtype=samples.dtype, device=samples.device)
+    omega = samples[..., 0:3] - bg
+    acc = samples[..., 3:6] - ba
+    for k in range(T):
+        st = preint_update(st, omega[:, k], acc[:, k], samples[:, k, 6], noise)
+    return st
+
+
 def predict_navstate(ns, preint: PreintState, gw):
     """Propagate a NavState through a preintegrated delta with first-order
     bias correction (Converter::updateNS, src/Converter.cpp:10-36)."""

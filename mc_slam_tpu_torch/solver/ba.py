@@ -1,6 +1,8 @@
-"""Pose-only visual optimization (port of the tracking part of
-mc_slam_tpu/solver/ba.py): Optimizer::PoseOptimization(Frame) as a
-fixed-iteration LM over one body pose against fixed world points.
+"""Vision-only bundle-adjustment problems on the LM + Schur engine (port of
+mc_slam_tpu/solver/ba.py): `pose_only_visual`, Optimizer::PoseOptimization
+(Frame) as a fixed-iteration LM over one body pose against fixed world
+points, and `visual_ba`, Optimizer::BundleAdjustment / LocalBundleAdjustment
+over camera poses and XYZ landmarks. Monocular rows only.
 """
 from __future__ import annotations
 
@@ -92,3 +94,57 @@ def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     inlier = (chi2 <= d2) & (z > 0) & (obs.valid > 0)
     return P, lie.so3_normalize_fast(R), chi2, torch.sum(inlier)
+
+
+def visual_ba(P0, R0, pts0, obs: VisualObs, camera: Camera, ext: factors.Extrinsics,
+              free_cam, pt_mask, iters: int = 10, lam0: float = 1e-4,
+              rtol: float = 0.0, two_phase: bool = True):
+    """Joint camera + landmark BA in the full landmark-table index space.
+
+    P0 (Nc, 3), R0 (Nc, 3, 3), pts0 (Np, 3); free_cam (Nc,) float {0, 1};
+    pt_mask (Np,). Returns (P, R, pts, chi2 (O,), final cost, costs): `costs`
+    is the cost curve, for each round its starting cost followed by the cost
+    after every iteration."""
+    Nc, Np = P0.shape[0], pts0.shape[0]
+    obs = obs._replace(cam=obs.cam.to(torch.int64), pt=obs.pt.to(torch.int64))
+    cam_k = obs.cam[:, None]
+
+    def per_obs(x):
+        P, R, pts = x
+        return obs_reproj(camera, ext, P[obs.cam], R[obs.cam], pts[obs.pt], obs)
+
+    def retract(x, dx):
+        P, R, pts = x
+        dxc, dxp = dx
+        return (P + dxc[:, :3], R @ lie.so3_exp(dxc[:, 3:6]), pts + dxp)
+
+    def make_fns(valid):
+        def cost_fn(x):
+            r, _, _, z, d2 = per_obs(x)
+            return _robust_cost(r, z, obs.inv_sigma2, valid, d2)
+
+        def linearize_solve(x, lam):
+            r, J_pr, J_pt, z, d2 = per_obs(x)
+            w, _ = _obs_weights(r, z, obs.inv_sigma2, valid, d2)
+            o = lm.Observations(cam=cam_k, pt=obs.pt, Jc=J_pr[:, None], Jp=J_pt,
+                                r=r, w=w)
+            Hcc, g_c, Hpp, g_p, Wcp, _ = lm.build_landmark_system(
+                o, free_cam, Nc, 6, Np, 3)
+            return lm.schur_solve(Hcc, g_c, Hpp, g_p, Wcp, lam, free_cam, pt_mask)
+
+        return linearize_solve, retract, cost_fn
+
+    def classify(x, valid0):
+        r, _, _, z, d2 = per_obs(x)
+        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+        return valid0 * ((chi2 <= d2) & (z > 1e-6)).to(valid0.dtype)
+
+    curve = []
+    (P, R, pts), cost, _ = lm.lm_two_phase(
+        (P0, R0, pts0), make_fns, obs.valid, classify, iters, lam0=lam0, rtol=rtol,
+        enable=two_phase, curve=curve)
+    R = lie.so3_normalize_fast(R)
+    r, _, _, z, _ = per_obs((P, R, pts))
+    chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+    chi2 = torch.where(z > 0, chi2, torch.full_like(chi2, 1e9))
+    return P, R, pts, chi2, cost, torch.stack(curve)

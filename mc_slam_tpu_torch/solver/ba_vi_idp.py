@@ -31,13 +31,13 @@ import torch
 from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import Camera
 from mc_slam_tpu_torch.imu.navstate import NavState
-from mc_slam_tpu_torch.imu.preintegration import PreintState
 from mc_slam_tpu_torch.slam_map.mapstate import _set_drop
 from mc_slam_tpu_torch.solver import factors, lm
 from mc_slam_tpu_torch.solver.ba import CHI2_MONO
 from mc_slam_tpu_torch.solver.ba_vi import (DC, IMUEdges, PriorFactor,
                                             _imu_edge_factors, _prior_factor,
-                                            _quad_cost, retract_states)
+                                            _quad_cost, edges_from_map,
+                                            retract_states)
 
 
 class IDPObs(NamedTuple):
@@ -266,17 +266,7 @@ def window_vi_ba_map(m, ks, idx_i, idx_j, ev, n_real, free_cam,
     valid = (mp >= 0) & fv & real[cam_idx]
     inv_sigma2 = 1.0 / (1.2 ** (2.0 * lvl.to(torch.float32)))
     pt = torch.clamp(mp, 0, m.P - 1)
-    # PRV / bias edges
-    idx_i = idx_i.to(torch.int64)
-    idx_j = idx_j.to(torch.int64)
-    pre = PreintState(*[x[ks[idx_j]] for x in m.kf_preint])
-    info_prv = factors.imu_prv_info(pre)
-    info_bias = factors.bias_rw_info(pre.dT, sigma_bg, sigma_ba)
-    sel = ev[:, None, None] > 0
-    info_prv = torch.where(sel, info_prv, torch.eye(9, dtype=info_prv.dtype, device=dev))
-    info_bias = torch.where(sel, info_bias, torch.eye(6, dtype=info_bias.dtype, device=dev))
-    edges = IMUEdges(i=idx_i, j=idx_j, pre=pre, info_prv=info_prv,
-                     info_bias=info_bias, valid=ev)
+    edges = edges_from_map(m.kf_preint, ks, idx_i, idx_j, ev, sigma_bg, sigma_ba)
     ns_w = NavState(*[a[ks] for a in m.kf_ns])
     ns2, mp_pos2, chi2, idp_valid, stats = vi_window_ba(
         ns_w, m.mp_pos, m.mp_active, pt, cam_idx, uv, inv_sigma2,

@@ -24,6 +24,12 @@ class Extrinsics(NamedTuple):
     tcb: torch.Tensor  # (3,)
 
 
+def identity_extrinsics(dtype=torch.float32, device=None) -> Extrinsics:
+    device = resolve(device)
+    return Extrinsics(torch.eye(3, dtype=dtype, device=device),
+                      torch.zeros(3, dtype=dtype, device=device))
+
+
 def extrinsics_from_Tbc(Tbc, dtype=torch.float32, device=None) -> Extrinsics:
     """From the body-from-camera matrix Tbc (config/euroc.yaml:40-44)."""
     Tbc = torch.as_tensor(Tbc, dtype=dtype, device=resolve(device))
@@ -185,4 +191,17 @@ def prior_pr_v_bias(P, R, V, dbg, dba, P0, R0, V0, dbg0, dba0):
     J = torch.eye(15, dtype=r.dtype, device=r.device).expand(
         r.shape[:-1] + (15, 15)).clone()
     J[..., 3:6, 3:6] = lie.so3_jr_inv(rPhi)
+    return r, J
+
+
+def gyr_bias(bg, dRij, J_R_bg, R_bi, R_bj):
+    """Gyro-bias-only factor of VI init (EdgeGyrBias, src/IMU/g2otypes.cpp:
+    1115-1161): r = Log((dRij Exp(J_R_bg bg))^T Rbi^T Rbj).
+    Returns the residual (..., 3) and its Jacobian (..., 3, 3) w.r.t. bg."""
+    Jbg = _mv(J_R_bg, bg)
+    corr = lie.so3_exp(Jbg)
+    rel = R_bi.transpose(-1, -2) @ R_bj
+    rR = (dRij @ corr).transpose(-1, -2) @ rel
+    r = lie.so3_log(rR)
+    J = -(lie.so3_jr_inv(r) @ lie.so3_exp(-r)) @ (lie.so3_jr(Jbg) @ J_R_bg)
     return r, J

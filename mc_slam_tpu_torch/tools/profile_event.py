@@ -1,12 +1,20 @@
-"""Stage table of one keyframe event at the euroc profile's full width.
+"""Stage tables of the keyframe events and of the bootstrap at the euroc
+profile's full width.
 
-    python3 -m mc_slam_tpu_torch.tools.profile_event [--events 3]
-        [--out profile_event.json]
+    python3 -m mc_slam_tpu_torch.tools.profile_event [--path vi|bootstrap]
+        [--events 3] [--out profile_event.json]
 
-Runs chip_smoke.py's track-and-map path up to the insertion of keyframe
-`--events`, then runs that event stage by stage (the calls of
-mapping.kf_event_pre, mapping_ctl.local_ba_idp and mapping.kf_event_post,
-in their order), each stage under torch.profiler and with
+`--path vi` (the default) runs chip_smoke.py's track-and-map path up to the
+insertion of keyframe `--events`, then runs that Mono+IMU event stage by
+stage (the calls of mapping.kf_event_pre, mapping_ctl.local_ba_idp and
+mapping.kf_event_post, in their order). `--path bootstrap` runs
+chip_smoke.py's bootstrap path from raw frames to the accepted VI
+initialization, keeping the states it hands to its stages, then runs alone:
+the two-view initialization, one visual frame, the last visual keyframe
+event stage by stage (its BA is the visual window BA), and the VI
+initialization stage by stage (whole-map visual BA, the init solve, the
+batched re-preintegration, whole-map VI BA, and `maybe_vi_init` whole).
+Each stage runs under torch.profiler and with
 torch.cuda.set_sync_debug_mode("warn"): host milliseconds (host clock, the
 stage ends in a synchronize), device-busy milliseconds (sum of the kernels'
 device time), kernels launched, and the device->host synchronizations with
@@ -24,6 +32,7 @@ import time
 import warnings
 from pathlib import Path
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
@@ -60,8 +69,138 @@ def measure(name, fn, rows):
     return out
 
 
+def _event_stages(m, st, cfg, frame, cam, ext, gw, noise, rows, ba_name):
+    """One keyframe event stage by stage, then whole; the branch of its BA
+    follows `st` (visual window BA before VI init, inverse-depth after)."""
+    from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl
+    slot = st.last_kf_slot
+    hists = torch.zeros((m.K, 1), device=m.mp_pos.device)
+    m1 = measure("pre: cull_and_evict", lambda: mapping.cull_and_evict(
+        m, frame, min_obs=mapping_ctl.CULL_MIN_OBS, n_evict=int(0.07 * m.P)), rows)
+    nb4, nbv4, wslots, wvalid = measure(
+        "pre: kf_neighbors", lambda: mapping.kf_neighbors(m1, slot, covis_th=mapping_ctl.COVIS_TH),
+        rows)
+    m2, _ = measure("pre: create_points x4 neighbours",
+                    lambda: mapping.create_points_with_neighbor_scan(
+                        m1, slot, nb4, cam, ext, cfg.max_new, cfg.n_levels), rows)
+    m3, _ = measure("pre: fuse_neighbors (8 pairs)",
+                    lambda: mapping.fuse_neighbors(m2, slot, nb4, nbv4, cam, ext), rows)
+    m4, ba = measure(ba_name, lambda: mapping_ctl.local_ba(m3, st, cfg, cam, ext, gw, noise),
+                     rows)
+    m5 = measure("post: refresh_point_stats",
+                 lambda: mapping.refresh_point_stats(m4, wslots, wvalid, ext, cfg.n_levels), rows)
+    measure("post: stats + covisibility (refresh off)",
+            lambda: mapping.kf_event_post(m5, slot, wslots, wvalid, ext, hists, cfg.n_levels,
+                                          refresh=False), rows)
+    measure("whole event (keyframe_event)",
+            lambda: mapping_ctl.keyframe_event(m, st, cfg, frame, cam, ext, gw, noise), rows)
+    return ba
+
+
+def profile_bootstrap(chip_smoke, dev, smi, out):
+    """Stage tables of the bootstrap path (see the module docstring)."""
+    import copy
+    from mc_slam_tpu_torch import camera as tcam
+    from mc_slam_tpu_torch.frontend import extractor
+    from mc_slam_tpu_torch.imu.preintegration import PreintState, preintegrate_batch
+    from mc_slam_tpu_torch.pipeline import (mapping, mapping_ctl, system, tracking,
+                                            viinit, viinit_ctl)
+    from mc_slam_tpu_torch.slam_map.mapstate import empty_map
+    p = dataclasses.replace(chip_smoke.EUROC, n_vi_frames=1)
+    seq = chip_smoke.make_sequence(
+        dataclasses.replace(p, n_frames=p.boot_max_frame + 2), seed=0)
+    cam = chip_smoke.profile_camera(p, dev)
+    ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device=dev)
+    noise = chip_smoke.euroc_noise(device=dev)
+    with chip_smoke.capture_bootstrap_states() as cap:
+        res = chip_smoke.run_bootstrap(seq, p, cam, ext, dev)
+    cfg = mapping_ctl.MappingConfig(
+        n_levels=p.n_levels, local_window=p.local_window, max_new=p.max_new, ba_Pw=p.ba_Pw,
+        vi_init_time=p.vi_init_time)
+    gw0 = torch.tensor([0.0, 0.0, -cfg.g_mag], device=dev)
+    rows = []
+    measure("profiler warm-up (not a stage)", lambda: mapping.cull_and_evict(cap["events"][0][0], 0), [])
+
+    # ---- two-view initialization and one visual frame ----
+    def feats(i):
+        f = extractor.extract(torch.from_numpy(seq.imgs[i]).to(dev), n_features=p.n_feat,
+                              n_levels=p.n_levels)
+        return f, tcam.undistort_points(cam, f.xy)
+    (f0, uv0), (f1, uv1) = feats(0), feats(res["init"]["frame"])
+    imu1 = torch.from_numpy(np.ascontiguousarray(seq.imu[1])).to(dev)
+
+    def two_view():
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)
+        return system.try_initialize(
+            empty_map(p.max_kf, p.max_mp, p.n_feat, device=dev), mapping_ctl.MappingState(),
+            cfg, cam, ext, noise, (f0, uv0, 0.0), f1, uv1, float(seq.times[1]), 1, imu1,
+            generator=gen)
+    two_view()
+    measure("try_initialize (match, 200 hypotheses, 2 keyframes, points, two-view BA)",
+            two_view, rows)
+    m_e, st_e, frame_e = [c for c in cap["events"] if not c[1].vi_inited][-1]
+    z = torch.zeros
+    measure("frame_pipeline_visual (one frame against the visual map)",
+            lambda: tracking.frame_pipeline_visual(
+                m_e, torch.from_numpy(seq.imgs[frame_e]).to(dev), cam, ext,
+                m_e.kf_ns.P[st_e.last_kf_slot], m_e.kf_ns.R[st_e.last_kf_slot], z(3, device=dev),
+                torch.eye(3, device=dev), z(p.n_feat, dtype=torch.int32, device=dev) - 1,
+                z(p.n_feat, device=dev), st_e.last_kf_slot, cfg.min_track_inliers,
+                n_features=p.n_feat, n_levels=p.n_levels, iters=p.iters, has_prev=False), rows)
+
+    # ---- the last visual keyframe event ----
+    print(f"[event] visual keyframe {st_e.last_kf_slot} at frame {frame_e}: "
+          f"{int(m_e.mp_active.sum())} active points, {len(st_e.kf_slots)} keyframes", flush=True)
+    mapping_ctl.keyframe_event(m_e, copy.deepcopy(st_e), cfg, frame_e, cam, ext, gw0, noise)
+    ba_e = _event_stages(m_e, st_e, cfg, frame_e, cam, ext, gw0, noise, rows,
+                         "BA: visual_ba window (10 iterations, 2 rounds, full point table)")
+
+    # ---- the accepted VI initialization ----
+    m_v, st_v, t_v, traj_v = cap["vi_attempts"][-1]
+    act = list(st_v.kf_slots)
+    print(f"[vi-init] t {t_v:.2f} s, {len(act)} keyframes, {int(m_v.mp_active.sum())} active "
+          f"points", flush=True)
+    fresh = lambda: copy.deepcopy(st_v)
+    m_b, _ = measure("vi-init: whole-map visual BA (10 iterations, 1 round)",
+                     lambda: mapping_ctl.local_ba(m_v, fresh(), cfg, cam, ext, gw0, noise,
+                                                  force_all=True), rows)
+    ks = torch.as_tensor(act, device=dev)
+    Rbc = ext.Rcb.T
+    pbc = -(Rbc @ ext.tcb)
+    Rwc = m_b.kf_ns.R[ks] @ Rbc
+    Pwc = m_b.kf_ns.P[ks] + m_b.kf_ns.R[ks] @ pbc
+    valid = torch.ones(len(act), device=dev)
+    valid[0] = 0.0
+    pre = PreintState(*[a[ks] for a in m_b.kf_preint])
+    vi = measure("vi-init: try_init_vio (4 steps)",
+                 lambda: viinit.try_init_vio(Pwc, Rwc, pre, valid, ext.Rcb, ext.tcb,
+                                             g_mag=cfg.g_mag), rows)
+    raws = [st_v.kf_imu_raw[s] for s in act if s in st_v.kf_imu_raw]
+    T = max(r.shape[0] for r in raws)
+    raw = torch.stack([torch.nn.functional.pad(r, (0, 0, 0, T - r.shape[0])) for r in raws])
+    measure(f"vi-init: preintegrate_batch ({len(raws)} keyframes x {T} rows)",
+            lambda: preintegrate_batch(raw, vi.bg, vi.ba, noise), rows)
+    m_i, att = viinit_ctl.maybe_vi_init(m_v, fresh(), cfg, t_v, cam, ext, gw0, noise)
+    st_i = fresh()
+    st_i.vi_inited = True
+    measure("vi-init: whole-map VI BA (8 iterations, 1 round) on the initialized map",
+            lambda: mapping_ctl.local_ba(m_i, st_i, cfg, cam, ext, att.gw, noise,
+                                         force_all=True), rows)
+    measure("vi-init: maybe_vi_init whole",
+            lambda: viinit_ctl.maybe_vi_init(m_v, fresh(), cfg, t_v, cam, ext, gw0, noise,
+                                             traj=copy.deepcopy(traj_v)), rows)
+    result = {"card": smi, "path": "bootstrap", "event_frame": frame_e,
+              "event_n_landmarks": int(ba_e.n_landmarks), "vi_init_keyframes": len(act),
+              "vi_init_scale": att.scale, "stages": rows}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--path", choices=("vi", "bootstrap"), default="vi")
     ap.add_argument("--events", type=int, default=3)
     ap.add_argument("--out", type=Path, default=Path("profile_event.json"))
     args = ap.parse_args()
@@ -76,6 +215,8 @@ def main():
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
+    if args.path == "bootstrap":
+        return profile_bootstrap(chip_smoke, dev, smi, args.out)
     p = dataclasses.replace(chip_smoke.EUROC, n_frames=args.events * chip_smoke.EUROC.kf_every + 1)
     seq = chip_smoke.make_sequence(p, seed=0)
     cam = chip_smoke.profile_camera(p, dev)
@@ -84,13 +225,12 @@ def main():
     chip_smoke.run_track_and_map(seq, p, cam, ext, dev,
                                  on_event=lambda m, st, i: captured.append((m, st.kf_slots[:], i)))
     m, slots, frame = captured[-1]
-    st = mapping_ctl.MappingState(kf_slots=slots, last_kf_slot=slots[-1])
+    st = mapping_ctl.MappingState(kf_slots=slots, last_kf_slot=slots[-1], vi_inited=True)
     cfg = mapping_ctl.MappingConfig(n_levels=p.n_levels, local_window=p.local_window,
                                     max_new=p.max_new, ba_Pw=p.ba_Pw)
     noise = chip_smoke.euroc_noise(device=dev)
     gw = torch.tensor([0.0, 0.0, -9.81], device=dev)
     slot = st.last_kf_slot
-    hists = torch.zeros((m.K, 1), device=dev)
     print(f"[event] keyframe {slot} at frame {frame}: {int(m.mp_active.sum())} active "
           f"points, window of {len(slots)} keyframes padded to "
           f"{max(cfg.ba_window, cfg.local_window) + 4}", flush=True)
@@ -99,25 +239,8 @@ def main():
     mapping_ctl.keyframe_event(m, st, cfg, frame, cam, ext, gw, noise)
     rows = []
     measure("profiler warm-up (not a stage)", lambda: mapping.cull_and_evict(m, frame), [])
-    m1 = measure("pre: cull_and_evict", lambda: mapping.cull_and_evict(
-        m, frame, min_obs=mapping_ctl.CULL_MIN_OBS, n_evict=int(0.07 * m.P)), rows)
-    nb4, nbv4, wslots, wvalid = measure(
-        "pre: kf_neighbors", lambda: mapping.kf_neighbors(m1, slot, covis_th=mapping_ctl.COVIS_TH),
-        rows)
-    m2, _ = measure("pre: create_points x4 neighbours",
-                    lambda: mapping.create_points_with_neighbor_scan(
-                        m1, slot, nb4, cam, ext, cfg.max_new, cfg.n_levels), rows)
-    m3, _ = measure("pre: fuse_neighbors (8 pairs)",
-                    lambda: mapping.fuse_neighbors(m2, slot, nb4, nbv4, cam, ext), rows)
-    m4, ba = measure("BA: window_vi_ba_map (8 iterations)",
-                     lambda: mapping_ctl.local_ba_idp(m3, st, cfg, cam, ext, gw, noise), rows)
-    m5 = measure("post: refresh_point_stats",
-                 lambda: mapping.refresh_point_stats(m4, wslots, wvalid, ext, cfg.n_levels), rows)
-    measure("post: stats + covisibility (refresh off)",
-            lambda: mapping.kf_event_post(m5, slot, wslots, wvalid, ext, hists, cfg.n_levels,
-                                          refresh=False), rows)
-    measure("whole event (keyframe_event)",
-            lambda: mapping_ctl.keyframe_event(m, st, cfg, frame, cam, ext, gw, noise), rows)
+    ba = _event_stages(m, st, cfg, frame, cam, ext, gw, noise, rows,
+                       "BA: window_vi_ba_map (8 iterations)")
     result = {"card": smi, "frame": frame, "slot": slot, "n_landmarks": int(ba.n_landmarks),
               "stages": rows}
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -55,6 +55,22 @@ def test_keyframe_event_modules_are_covered():
         assert f"mc_slam_tpu_torch.{mod}" in names, mod
 
 
+BOOTSTRAP_MODULES = ("geometry.init2view", "pipeline.viinit", "pipeline.viinit_ctl",
+                     "pipeline.tracking_ctl", "pipeline.trajstore", "pipeline.system",
+                     "eval.ate", "solver.ba", "solver.ba_vi", "frontend.matching")
+
+
+@pytest.mark.parametrize("mod", BOOTSTRAP_MODULES)
+def test_bootstrap_modules_are_covered(mod):
+    """Every module of the bootstrap slice is among those the import test
+    walks, and names neither jax nor the JAX package in an import line."""
+    assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
+    src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
+    imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
+    assert imports and not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
+                               for l in imports)
+
+
 @pytest.mark.parametrize("tool", ["bench_hamming", "profile_event"])
 def test_measurement_tools_refuse_without_gpu(tool):
     proc = subprocess.run([sys.executable, "-m", f"mc_slam_tpu_torch.tools.{tool}"],

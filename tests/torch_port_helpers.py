@@ -1,10 +1,12 @@
 """Shared helpers of the port's parity tests (tests/test_torch_*.py): the
-small track-and-map profile, conversion of the port's MapState to the JAX
-package's, and field-by-field comparison of two maps."""
+small track-and-map profile and the bootstrap profile with their cached runs,
+conversion of the port's MapState to the JAX package's, field-by-field
+comparison of two maps, and the replay of the JAX package's RANSAC samples."""
 import copy
 import functools
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
@@ -23,8 +25,31 @@ SMALL = chip_smoke.Profile(width=320, height=240, n_feat=256, n_levels=3, max_mp
                            max_kf=8, n_frames=21, kf_every=10, tex_size=256,
                            local_window=4, max_new=64, ba_Pw=512)
 
+# EuRoC's camera-from-body extrinsic as numpy (Rcb, tcb)
+_RCB = chip_smoke.TBC[:3, :3].T.astype(np.float32)
+TBC_EXT = (_RCB, (-_RCB @ chip_smoke.TBC[:3, 3]).astype(np.float32))
+
+# the bootstrap fixture: wide enough for a 5 s VI initialization that the
+# float32 init solve conditions well (at 320x240 / 256 features the step-3
+# system is rank-poor and the two packages' results drift apart), small
+# enough for XLA:CPU: K = 16 keyframes, P = 2048 points, F = 512 features
+BOOT = chip_smoke.Profile(width=480, height=360, n_feat=512, n_levels=4, max_mp=2048,
+                          max_kf=16, n_frames=106, kf_every=10, tex_size=512,
+                          local_window=4, max_new=128, ba_Pw=1024, vi_init_time=5.0,
+                          init_max_frame=10, boot_max_frame=101, n_vi_frames=4)
+
 INT_FIELDS = ("kf_mp", "mp_active", "mp_ref_kf", "mp_first_kf", "kf_active", "kf_id",
               "kf_level", "kf_feat_valid", "kf_desc", "kf_pm1", "mp_desc", "mp_pm1")
+
+
+def jax_samples(key, w, n_iters=200):
+    """The (n_iters, 8) sample indices that the JAX package's
+    init2view.initialize_two_view(key, ..., w, ...) draws inside
+    (its lines :231-234, repeated with the same key)."""
+    probs = w / jnp.maximum(jnp.sum(w), 1.0)
+    return np.asarray(jax.random.categorical(
+        key, jnp.log(jnp.maximum(probs, 1e-12))[None, :].repeat(n_iters * 8, 0)
+    ).reshape(n_iters, 8))
 
 
 def jax_map(m: MapState):
@@ -84,4 +109,20 @@ def small_run():
         seq, SMALL, cam, ext, "cpu", recorder=rec,
         on_event=lambda m, st, i: captured.append((m, copy.deepcopy(st), i)))
     res["recorder"] = rec
+    return seq, cam, ext, res, captured
+
+
+@functools.lru_cache(maxsize=None)
+def boot_run():
+    """chip_smoke.py's path 3 at the BOOT profile on the CPU: two-view
+    initialization from raw frames, visual tracking and mapping, VI
+    initialization at 5 s, four VI frames (~50 s). Returns (seq, cam, ext,
+    result, captured), `captured` as chip_smoke.capture_bootstrap_states
+    yields it."""
+    torch.set_num_threads(2)
+    seq = chip_smoke.make_sequence(BOOT, seed=0)
+    cam = chip_smoke.profile_camera(BOOT, "cpu")
+    ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device="cpu")
+    with chip_smoke.capture_bootstrap_states() as captured:
+        res = chip_smoke.run_bootstrap(seq, BOOT, cam, ext, "cpu")
     return seq, cam, ext, res, captured
