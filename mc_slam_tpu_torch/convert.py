@@ -14,6 +14,12 @@ torch gathers with.
 Any NamedTuple of the port converts: MapState, Features, NavState,
 PreintState, Camera, Extrinsics, PriorFactor, and the bootstrap's
 TwoViewResult, VIInitResult, VisualObs and IMUEdges (nested PreintState).
+
+The host bookkeeping of a SlamSystem goes across as a plain dict
+(`host_state_to_dict` / `host_state_from_dict`): the fields of MappingState
+under the JAX class's attribute names, raw IMU rows as numpy, and the
+TrajStore's rows and meta. A parity test sets the dict's entries on a JAX
+SlamSystem and so hands one state to both systems.
 """
 from __future__ import annotations
 
@@ -86,3 +92,49 @@ def to_numpy(obj):
         else:
             out[f] = to_numpy(v)
     return out
+
+
+# MappingState field -> the JAX SlamSystem attribute that holds the same thing
+HOST_FIELDS = {
+    "kf_slots": "kf_slots", "free_slots": "free_slots",
+    "next_fresh_slot": "next_fresh_slot", "last_kf_slot": "last_kf_slot",
+    "last_kf_frame": "last_kf_frame", "n_kf": "n_kf", "first_kf_time": "first_kf_time",
+    "vi_inited": "vi_inited", "kf_time_host": "kf_time_host", "kf_id_host": "kf_id_host",
+    "broken_chain_slots": "broken_chain_slots", "loop_edges": "loop_edges",
+    "chain_break_pending": "_chain_break_pending", "ref_tracked": "_ref_tracked_cache"}
+
+
+def host_state_to_dict(st, traj=None):
+    """The MappingState `st` (and the TrajStore `traj`) as a dict of Python
+    and numpy values keyed by the JAX SlamSystem's attribute names, plus
+    "kf_imu_raw" (slot -> (T, 7) numpy), "covis_row" (numpy or None; the JAX
+    class keeps it as `_covis_row_cache = (slot, row)`), and, with `traj`,
+    "traj_rows" (four stacked numpy arrays or None) and "traj_meta"."""
+    import copy
+    out = {jax_name: copy.deepcopy(getattr(st, f)) for f, jax_name in HOST_FIELDS.items()}
+    out["kf_imu_raw"] = {k: v.detach().cpu().numpy() for k, v in st.kf_imu_raw.items()}
+    out["covis_row"] = None if st.covis_row is None else np.array(st.covis_row)
+    if traj is not None:
+        blk = traj._stack()
+        out["traj_rows"] = None if blk is None else [b.detach().cpu().numpy() for b in blk]
+        out["traj_meta"] = list(traj.meta)
+    return out
+
+
+def host_state_from_dict(d, device=None):
+    """The inverse: (MappingState, TrajStore) on `device` from such a dict
+    (made here, or read off a JAX SlamSystem by the caller)."""
+    from mc_slam_tpu_torch.pipeline.mapping_ctl import MappingState
+    from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
+    device = resolve(device)
+    st = MappingState(**{f: d[jax_name] for f, jax_name in HOST_FIELDS.items()})
+    st.kf_slots, st.free_slots = list(st.kf_slots), list(st.free_slots)
+    st.broken_chain_slots = set(st.broken_chain_slots)
+    st.kf_imu_raw = {int(k): _tensor(np.asarray(v, np.float32), device)
+                     for k, v in d["kf_imu_raw"].items()}
+    st.covis_row = None if d.get("covis_row") is None else np.array(d["covis_row"], np.float32)
+    traj = TrajStore()
+    if d.get("traj_rows") is not None:
+        traj.block = [_tensor(a, device) for a in d["traj_rows"]]
+        traj.meta = [tuple(x) for x in d["traj_meta"]]
+    return st, traj

@@ -3,16 +3,20 @@ mc_slam_tpu/pipeline/mapping_ctl.py and of SlamSystem._insert_kf_raw).
 
 The JAX package keeps these as methods of SlamSystem's mixins, dispatched
 asynchronously with a deferred harvest. Here they are plain synchronous
-module functions over an explicit `MappingState`; the orchestrator class
-comes with a later slice. Covered: keyframe insertion before and after VI
+module functions over an explicit `MappingState`, which the orchestrator
+class (pipeline/system.py) holds. Covered: keyframe insertion before and after VI
 initialization (`insert_keyframe`), the IMU edge lists (`imu_edge_lists`),
 the covisibility queries, every branch of `_local_ba` (`local_ba`: the
 visual window before VI init, the whole-map `force_all` form in its visual
 and XYZ VI variants, the inverse-depth VI window `local_ba_idp`), and the
-event order of `_local_mapping` (`keyframe_event`). Not covered: the
-landmark-chunked whole-map BA (a `force_all` window of more than 40
-keyframes raises), keyframe culling, loop detection (`kf_event_post` takes
-zero histograms), slot recycling.
+event order of `_local_mapping` followed by `_harvest_event`
+(`keyframe_event`: the stats are noted, then keyframes are culled), slot
+allocation with recycling and eviction (`alloc_kf_slot`), keyframe removal
+(`remove_keyframe`, `splice_imu_chain`), keyframe culling (`cull_keyframes`)
+and the landmark-chunked whole-map BA (`global_ba_chunked`, taken by a
+`force_all` window of more than 40 keyframes). Not covered: loop detection
+(`kf_event_post` takes zero histograms; `MappingState.loop_edges` stays
+empty) and the mesh-sharded form of the chunked BA.
 
 Padded window rows are never written back (the JAX package pads with copies
 of the last slot and scatters every row, so that slot is written several
@@ -23,7 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import NamedTuple
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -34,36 +38,16 @@ from mc_slam_tpu_torch.imu.preintegration import IMUNoise, preintegrate
 from mc_slam_tpu_torch.pipeline import mapping
 from mc_slam_tpu_torch.slam_map.mapstate import (MapState, _set_drop,
                                                  covisibility_weights)
-from mc_slam_tpu_torch.solver import ba, ba_vi, ba_vi_idp, factors
+from mc_slam_tpu_torch.solver import ba, ba_chunked, ba_vi, ba_vi_idp, factors
 from mc_slam_tpu_torch.solver.ba_vi_idp import BAStats
 
+if TYPE_CHECKING:
+    from mc_slam_tpu_torch.pipeline.system import SlamConfig
 
-COVIS_TH = 15        # covisibility edge weight (SlamConfig.covis_th)
-CULL_MIN_OBS = 3     # monocular nThObs (SlamConfig.cull_min_obs)
+
 BA_ITERS = 8         # LM iterations of the VI BAs
 VISUAL_BA_ITERS = 10  # LM iterations of the visual BAs
-GBA_MAX_KF = 40      # a whole-map BA over more keyframes needs the chunked form
-
-
-@dataclasses.dataclass(frozen=True)
-class MappingConfig:
-    """The fields of SlamConfig that mapping, tracking control and VI
-    initialization read, with its defaults; examples/eval_clone.py's euroc
-    profile sets n_levels=8, local_window=20."""
-    n_levels: int = 8
-    local_window: int = 10
-    ba_window: int = 8
-    max_new: int = 256
-    ba_Pw: int = 4096
-    min_init_matches: int = 60
-    min_track_inliers: int = 12
-    kf_min_gap: int = 3             # frames
-    kf_max_gap: int = 20
-    kf_ref_ratio: float = 0.8       # NeedNewKeyFrame ratio
-    vi_init_time: float = 15.0      # seconds (config/euroc.yaml:6)
-    vi_init_max_cond: float = 5e4   # step-3 condition-number acceptance
-    vi_init_scale_tol: float = 0.5  # |s - s_star| / s agreement of steps 2 and 3
-    g_mag: float = 9.81
+GBA_MAX_KF = 40      # a whole-map BA over more keyframes takes the chunked form
 
 
 @dataclasses.dataclass
@@ -82,6 +66,11 @@ class MappingState:
     kf_id_host: dict = dataclasses.field(default_factory=dict)  # slot -> frame id
     ref_tracked: int | None = None         # the last event's well-observed count
     last_init_attempt_nkf: int = -1
+    free_slots: list = dataclasses.field(default_factory=list)  # culled slots, for reuse
+    next_fresh_slot: int = 0               # high-water mark of slot allocation
+    kf_time_host: dict = dataclasses.field(default_factory=dict)  # slot -> time
+    loop_edges: list = dataclasses.field(default_factory=list)  # [(slot_a, slot_b)]
+    chain_break_pending: bool = False      # the next keyframe starts a new IMU chain
 
 
 class EventResult(NamedTuple):
@@ -90,6 +79,7 @@ class EventResult(NamedTuple):
     n_culled: torch.Tensor     # active points lost to culling / eviction
     ba: BAStats | None
     stats: tuple               # kf_event_post's (covis_row, red_ratio, n_pts, n_active, n_well)
+    removed: tuple = ()        # keyframe slots culled at the event's end
 
 
 def imu_edge_lists(all_slots, n_window, broken_chain_slots=(), prev_idx=None,
@@ -112,7 +102,7 @@ def imu_edge_lists(all_slots, n_window, broken_chain_slots=(), prev_idx=None,
             np.asarray(ev, np.float32))
 
 
-def vi_window_slots(st: MappingState, cfg: MappingConfig):
+def vi_window_slots(st: MappingState, cfg: SlamConfig):
     """The VI local-BA window: the newest `local_window` keyframes of the
     chain, never extended back across a broken IMU chain."""
     w = list(st.kf_slots)[-cfg.local_window:]
@@ -123,10 +113,10 @@ def vi_window_slots(st: MappingState, cfg: MappingConfig):
     return w
 
 
-def _ranked(st: MappingState, row, slot, n, fallback):
+def _ranked(st: MappingState, row, slot, n, fallback, covis_th=15):
     """Keyframes by descending covisibility weight in `row` (the slot itself
     and inactive slots zeroed; equal weights to the lowest slot): the first n
-    that clear COVIS_TH, else, with `fallback`, the single best if it shares
+    that clear covis_th, else, with `fallback`, the single best if it shares
     any point (UpdateConnections keeps the max-weight edge)."""
     w = np.array(row, dtype=np.float32)
     w[slot] = 0
@@ -134,22 +124,23 @@ def _ranked(st: MappingState, row, slot, n, fallback):
     active[list(st.kf_slots)] = 1.0
     w = w * active
     order = np.argsort(-w, kind="stable")
-    out = [int(k) for k in order[:n] if w[k] >= COVIS_TH]
+    out = [int(k) for k in order[:n] if w[k] >= covis_th]
     if fallback and not out and w[order[0]] > 0:
         out = [int(order[0])]
     return out
 
 
-def _covisible_strong(st: MappingState, cfg: MappingConfig, n):
+def _covisible_strong(st: MappingState, cfg: SlamConfig, n):
     """Covisible neighbours of the newest keyframe that clear covis_th, from
     the covisibility row the last event left on the host (none before the
     first event)."""
     if st.covis_row is None:
         return []
-    return _ranked(st, st.covis_row, st.last_kf_slot, n, fallback=False)
+    return _ranked(st, st.covis_row, st.last_kf_slot, n, fallback=False,
+                   covis_th=cfg.covis_th)
 
 
-def covisible_stale(m: MapState, st: MappingState, slot, n, strong=False):
+def covisible_stale(m: MapState, st: MappingState, slot, n, strong=False, covis_th=15):
     """Neighbour selection from the covisibility row the last event left on
     the host, whichever keyframe produced it (consecutive keyframes share
     most of their covisibles; the row's own keyframe keeps its inflated
@@ -159,14 +150,15 @@ def covisible_stale(m: MapState, st: MappingState, slot, n, strong=False):
     row = st.covis_row
     if row is None:
         row = covisibility_weights(m, slot).cpu().numpy()
-    return _ranked(st, row, slot, n, fallback=not strong)
+    return _ranked(st, row, slot, n, fallback=not strong, covis_th=covis_th)
 
 
-def visual_window_slots(m: MapState, st: MappingState, cfg: MappingConfig):
+def visual_window_slots(m: MapState, st: MappingState, cfg: SlamConfig):
     """The visual local-BA window: the newest keyframe, its covisibles, and
     always the previous keyframe (with a stale row it can be missing)."""
     slot = st.last_kf_slot
-    window = [slot] + covisible_stale(m, st, slot, cfg.ba_window - 1)
+    window = [slot] + covisible_stale(m, st, slot, cfg.ba_window - 1,
+                                      covis_th=cfg.covis_th)
     if len(st.kf_slots) >= 2:
         prev = st.kf_slots[-2]
         if prev not in window:
@@ -174,7 +166,7 @@ def visual_window_slots(m: MapState, st: MappingState, cfg: MappingConfig):
     return window
 
 
-def window_problem(st: MappingState, cfg: MappingConfig):
+def window_problem(st: MappingState, cfg: SlamConfig):
     """The slots, free mask, edge lists and prior flag of the inverse-depth
     window BA, on the host (SlamSystem._local_ba's window and pad rule).
     Returns None when the window has fewer than 2 keyframes, else a dict
@@ -217,10 +209,11 @@ def _pad_window(window, fixed, pad_to):
     return all_slots, n_real, free
 
 
-def local_ba_idp(m: MapState, st: MappingState, cfg: MappingConfig, cam: Camera,
-                 ext: factors.Extrinsics, gw, noise: IMUNoise, prune=True):
+def local_ba_idp(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
+                 ext: factors.Extrinsics, gw, noise: IMUNoise, prune=True, ba_Pw=4096):
     """The inverse-depth VI window BA of one event over the MapState.
-    Returns (m, BAStats or None when the window is too short)."""
+    ba_Pw: landmark slots of the compacted window problem. Returns (m, BAStats
+    or None when the window is too short)."""
     prob = window_problem(st, cfg)
     if prob is None:
         return m, None
@@ -246,8 +239,8 @@ def local_ba_idp(m: MapState, st: MappingState, cfg: MappingConfig, cam: Camera,
             valid=torch.ones((), dtype=torch.float32, device=dev))
     return ba_vi_idp.window_vi_ba_map(
         m, ks, idx_i, idx_j, packed[3], prob["n_real"], packed[4], cam, ext, gw,
-        noise.sigma_bg, noise.sigma_ba, prior=prior, iters=BA_ITERS,
-        Pw=min(cfg.ba_Pw, m.P), do_prune=prune)
+        noise.sigma_bg, noise.sigma_ba, prior=prior, iters=BA_ITERS, rtol=cfg.ba_rtol,
+        Pw=min(ba_Pw, m.P), do_prune=prune)
 
 
 def gather_obs(m: MapState, ks, n_real) -> ba.VisualObs:
@@ -266,34 +259,37 @@ def gather_obs(m: MapState, ks, n_real) -> ba.VisualObs:
         valid=valid.to(torch.float32))
 
 
-def local_ba(m: MapState, st: MappingState, cfg: MappingConfig, cam: Camera,
+def local_ba(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
              ext: factors.Extrinsics, gw, noise: IMUNoise, force_all=False,
-             prune=True):
+             prune=True, ba_Pw=4096):
     """SlamSystem._local_ba: the branch follows the state. After VI init a
     window event runs the inverse-depth BA (`local_ba_idp`); before it, the
     visual BA over the covisibility window. force_all: the whole map, oldest
-    keyframe fixed, padded to a multiple of 8 keyframes, one round with no
-    outlier re-classification (the reference's global BA): the visual form
-    before VI init, the XYZ VI form (`ba_vi.vi_ba`) after.
+    keyframe fixed, one round with no outlier re-classification (the
+    reference's global BA), the visual form before VI init, the XYZ VI form
+    after: up to 40 keyframes dense (`ba.visual_ba` / `ba_vi.vi_ba`, padded
+    to a multiple of 8 keyframes), above that landmark-chunked
+    (`global_ba_chunked`).
     Returns (m, BAStats or None when the window has fewer than 2 keyframes);
     `overflow` is 0 (these solve over the whole landmark table)."""
     if force_all:
         window = list(st.kf_slots)
         if len(window) > GBA_MAX_KF:
-            # the JAX package switches to its landmark-chunked Schur form
-            # here; the dense Wcp would be O(Nc * Np) and is never its stand-in
-            raise NotImplementedError(
-                f"whole-map BA over {len(window)} keyframes (> {GBA_MAX_KF}) needs the "
-                f"landmark-chunked solver, which is not ported yet")
+            # the dense Wcp would be O(Nc * Np): a whole-map BA stays O(map)
+            return global_ba_chunked(m, st, cfg, cam, ext, gw, noise, window, prune=prune)
         fixed = []
         pad_to = int(math.ceil(len(window) / 8)) * 8
     elif st.vi_inited:
-        return local_ba_idp(m, st, cfg, cam, ext, gw, noise, prune=prune)
+        if not cfg.use_idp_ba:
+            raise NotImplementedError("the XYZ form of the VI window BA (use_idp_ba=False) "
+                                      "is not ported")
+        return local_ba_idp(m, st, cfg, cam, ext, gw, noise, prune=prune, ba_Pw=ba_Pw)
     else:
         window = visual_window_slots(m, st, cfg)
         # strong edges only: a weight-1 observer must not be the gauge anchor
         fixed = [s for s in covisible_stale(m, st, st.last_kf_slot, cfg.ba_window + 6,
-                                            strong=True) if s not in window][:4]
+                                            strong=True, covis_th=cfg.covis_th)
+                 if s not in window][:4]
         pad_to = max(cfg.ba_window, cfg.local_window) + 4
     if len(window) < 2:
         return m, None
@@ -322,14 +318,22 @@ def local_ba(m: MapState, st: MappingState, cfg: MappingConfig, cam: Camera,
     else:
         P2, R2, pts2, chi2, cost, costs = ba.visual_ba(
             m.kf_ns.P[ks], m.kf_ns.R[ks], m.mp_pos, obs, cam, ext, free_t, pt_mask,
-            iters=VISUAL_BA_ITERS, two_phase=not force_all)
+            iters=VISUAL_BA_ITERS, rtol=0.0 if force_all else cfg.ba_rtol,
+            two_phase=not force_all)
         kf_ns2 = m.kf_ns._replace(P=_set_drop(m.kf_ns.P, ks_real, P2),
                                   R=_set_drop(m.kf_ns.R, ks_real, R2))
     m = m._replace(kf_ns=kf_ns2, mp_pos=pts2)
+    return _finish_ba(m, obs, ks_real, chi2, cost, costs, prune)
+
+
+def _finish_ba(m: MapState, obs: ba.VisualObs, ks_real, chi2, cost, costs, prune):
+    """The tail the XYZ BAs share: the association prune (chi2 gate at 1.5 x
+    the mono threshold; rows of pad slots fall off the table) and the stats."""
+    dev = m.mp_pos.device
     if prune:
-        # remove outlier associations (chi2 gate at 1.5 x the mono threshold)
         bad = (chi2 > ba.CHI2_MONO * 1.5) & (obs.valid > 0)
-        kept = torch.where(bad.reshape(n, -1), -1, m.kf_mp[ks])
+        ks = torch.clamp(ks_real, max=m.K - 1)
+        kept = torch.where(bad.reshape(ks.shape[0], -1), -1, m.kf_mp[ks])
         m = m._replace(kf_mp=_set_drop(m.kf_mp, ks_real, kept))
     seen = _set_drop(torch.zeros(m.P, dtype=torch.bool, device=dev),
                      torch.where(obs.valid > 0, obs.pt, m.P), True)
@@ -337,6 +341,67 @@ def local_ba(m: MapState, st: MappingState, cfg: MappingConfig, cam: Camera,
                     n_landmarks=torch.sum(seen & m.mp_active),
                     overflow=torch.zeros((), dtype=torch.int64, device=dev))
     return m, stats
+
+
+def global_ba_chunked(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
+                      ext: factors.Extrinsics, gw, noise: IMUNoise, window, prune=True,
+                      kf_pad=32, chunk=1024):
+    """The whole-map BA through ba_chunked (GlobalBundleAdjustment
+    [NavStatePRV], src/Optimizer.cpp:3346 / :629), for maps of more than 40
+    keyframes: keyframes padded to a multiple of `kf_pad`, landmarks in chunks
+    of `chunk`, the oldest keyframe fixed, one round. With prune, a flat chi2
+    pass at the result clears outlier associations.
+
+    The observation table goes to the host once (its grouping by chunk is
+    host arithmetic) and comes back grouped. Pad rows are fixed and carry no
+    observation; they are dropped from the scatter-back and from the prune
+    (the JAX package writes them back: copies of the newest keyframe's
+    pose from before the solve, over its result).
+    Returns (m, BAStats)."""
+    n_real = len(window)
+    pad_n = int(math.ceil(n_real / kf_pad)) * kf_pad
+    all_slots = list(window) + [window[-1]] * (pad_n - n_real)
+    free = np.zeros(pad_n, np.float32)
+    free[1:n_real] = 1.0                            # gauge: the oldest keyframe
+    idx_i, idx_j, ev = imu_edge_lists(all_slots, n_real, st.broken_chain_slots,
+                                      prev_idx=None, n_pad=pad_n)
+    dev = m.mp_pos.device
+    rows = [all_slots, free, idx_i, idx_j, ev]
+    packed = torch.as_tensor(np.stack([np.asarray(r, np.float32) for r in rows]),
+                             device=dev)            # one host->device copy
+    ks, free_t = packed[0].to(torch.int64), packed[1]
+    obs = gather_obs(m, ks, n_real)
+    n_chunks = max(1, m.P // chunk)
+    flat = torch.cat([obs.cam[:, None].to(torch.float32), obs.pt[:, None].to(torch.float32),
+                      obs.uv, obs.inv_sigma2[:, None], obs.valid[:, None]],
+                     dim=1).cpu().numpy()           # one device->host copy
+    cobs, _ = ba_chunked.chunk_observations(
+        flat[:, 0].astype(np.int64), flat[:, 1].astype(np.int64), flat[:, 2:4], flat[:, 4],
+        flat[:, 5], m.P, n_chunks, device=dev)
+    pt_mask = m.mp_active.to(torch.float32)
+    ks_real = torch.where(torch.arange(pad_n, device=dev) < n_real, ks, m.K)
+    if st.vi_inited:
+        edges = ba_vi.edges_from_map(m.kf_preint, ks, packed[2], packed[3], packed[4],
+                                     noise.sigma_bg, noise.sigma_ba)
+        ns_w = NavState(*[a[ks] for a in m.kf_ns])
+        ns2, pts2, cost, costs = ba_chunked.vi_gba_chunked(
+            ns_w, m.mp_pos, cobs, edges, cam, ext, gw, free_t, pt_mask, iters=BA_ITERS)
+        kf_ns2 = NavState(*[_set_drop(full, ks_real, w) for full, w in zip(m.kf_ns, ns2)])
+    else:
+        P2, R2, pts2, cost, costs = ba_chunked.visual_gba_chunked(
+            m.kf_ns.P[ks], m.kf_ns.R[ks], m.mp_pos, cobs, cam, ext, free_t, pt_mask,
+            iters=VISUAL_BA_ITERS)
+        kf_ns2 = m.kf_ns._replace(P=_set_drop(m.kf_ns.P, ks_real, P2),
+                                  R=_set_drop(m.kf_ns.R, ks_real, R2))
+    m = m._replace(kf_ns=kf_ns2, mp_pos=pts2)
+    chi2 = None
+    if prune:
+        # per-observation chi2 in one flat pass (no Schur structure involved)
+        r, _, _, z = factors.reproj_xyz(cam, ext, m.kf_ns.P[ks][obs.cam],
+                                        m.kf_ns.R[ks][obs.cam], m.mp_pos[obs.pt], obs.uv)
+        chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
+        chi2 = torch.where(z > 0, chi2, torch.full_like(chi2, 1e9))
+    return _finish_ba(m, obs, ks_real, chi2, cost, costs, prune)
 
 
 def cam_to_body(ext: factors.Extrinsics, P_c, R_c):
@@ -347,25 +412,161 @@ def cam_to_body(ext: factors.Extrinsics, P_c, R_c):
     return P_c - (R_b @ pbc[..., None])[..., 0], R_b
 
 
-def insert_keyframe(m: MapState, st: MappingState, slot: int, ns: NavState, feats,
+# ---------------------------------------------------------------------------
+# Keyframe slots: allocation with recycling, removal, culling
+# ---------------------------------------------------------------------------
+
+def alloc_kf_slot(m: MapState, st: MappingState, cfg: SlamConfig, noise: IMUNoise,
+                  traj=None):
+    """The slot of the next keyframe (SlamSystem._alloc_kf_slot): a culled
+    slot first, then a fresh one up to the table's size; at capacity the most
+    redundant old keyframe is evicted (among the first 16 candidates outside
+    the protected set: keyframe 0, the newest max(2, local_window), loop-edge
+    carriers; equal ratios go to the HIGHER slot). The redundancy of every
+    keyframe comes from one `kf_redundancy_all` and one copy.
+    Returns (m, slot); `st` (and `traj`, on eviction) are updated in place."""
+    if st.free_slots:
+        return m, st.free_slots.pop(0)
+    if st.next_fresh_slot < m.K:
+        st.next_fresh_slot += 1
+        return m, st.next_fresh_slot - 1
+    prot = set(st.kf_slots[-max(2, cfg.local_window):]) | {st.kf_slots[0]}
+    for e in st.loop_edges:
+        prot.update(e[:2])
+    cand = [s for s in st.kf_slots if s not in prot] or [st.kf_slots[1]]
+    ratio = mapping.kf_redundancy_all(m)[0].cpu().numpy()
+    victim = max((float(ratio[s]), s) for s in cand[:16])[1]
+    m = remove_keyframe(m, st, cfg, victim, noise, traj=traj)
+    return m, st.free_slots.pop(0)
+
+
+def splice_imu_chain(m: MapState, st: MappingState, cfg: SlamConfig, slot: int,
+                     noise: IMUNoise):
+    """Before keyframe `slot` is removed, its raw IMU rows go in front of its
+    successor's and the successor's preintegration is made again at its full
+    bias (KeyFrame::SetBadFlag splicing, src/KeyFrame.cpp:1028-1030). The
+    port's `preintegrate` takes any number of rows, so the merged span needs
+    no chaining of fixed 256-row pieces as in the JAX package."""
+    if not cfg.use_imu:
+        return m
+    act = st.kf_slots
+    i = act.index(slot)
+    if i + 1 >= len(act):
+        return m
+    nxt = act[i + 1]
+    dev = m.mp_pos.device
+    none = torch.zeros((0, 7), dtype=torch.float32, device=dev)
+    merged = torch.cat([st.kf_imu_raw.get(slot, none), st.kf_imu_raw.get(nxt, none)])
+    st.kf_imu_raw[nxt] = merged
+    pre = preintegrate(merged, m.kf_ns.bg[nxt] + m.kf_ns.dbg[nxt],
+                       m.kf_ns.ba[nxt] + m.kf_ns.dba[nxt], noise)
+    return m._replace(kf_preint=type(m.kf_preint)(
+        *[mapping._set_row(a, nxt, b) for a, b in zip(m.kf_preint, pre)]))
+
+
+def remove_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, slot: int,
+                    noise: IMUNoise, traj=None):
+    """Deactivate keyframe `slot` and recycle it (SlamSystem._remove_keyframe,
+    the bookkeeping of KeyFrame::SetBadFlag): its IMU rows are spliced into
+    its successor, the map points it anchored and the trajectory rows recorded
+    against it pass to its heir (the next keyframe, else the previous), every
+    host table forgets it. One device->host copy (the two poses).
+    Returns m; `st` and `traj` are updated in place."""
+    m = splice_imu_chain(m, st, cfg, slot, noise)
+    act = st.kf_slots
+    i = act.index(slot)
+    heir = act[i + 1] if i + 1 < len(act) else act[i - 1]
+    if traj is not None:
+        # saved frame poses compose through the surviving parent; otherwise
+        # they would keep their track-time pose and miss every later correction
+        pair = torch.as_tensor([slot, heir], device=m.mp_pos.device)
+        h = torch.cat([m.kf_ns.P[pair].reshape(-1), m.kf_ns.R[pair].reshape(-1)]).cpu().numpy()
+        Pk, Ph = h[0:3], h[3:6]
+        Rk, Rh = h[6:15].reshape(3, 3), h[15:24].reshape(3, 3)
+        traj.reparent(slot, st.kf_id_host[slot], heir, st.kf_id_host[heir],
+                      Rh.T @ (Pk - Ph), Rh.T @ Rk)      # the culled pose in the heir's frame
+    m = m._replace(mp_ref_kf=torch.where(m.mp_ref_kf == slot, heir, m.mp_ref_kf))
+    m = mapping.deactivate_keyframe(m, slot)
+    st.kf_slots.remove(slot)
+    st.loop_edges = [e for e in st.loop_edges if slot not in e[:2]]
+    st.kf_imu_raw.pop(slot, None)
+    st.kf_time_host.pop(slot, None)
+    st.kf_id_host.pop(slot, None)
+    st.broken_chain_slots.discard(slot)
+    st.free_slots.append(slot)
+    return m
+
+
+def cull_keyframes(m: MapState, st: MappingState, cfg: SlamConfig, noise: IMUNoise,
+                   traj=None, ratio_all=None, npts_all=None):
+    """LocalMapping::KeyFrameCulling (src/LocalMapping.cpp:1777) as
+    SlamSystem._cull_keyframes: a keyframe goes when more than 90 % of its
+    points (and more than 20) are seen by at least 4 keyframes. With the IMU:
+    never within 0.11 s of the newest keyframe, and the gap it leaves between
+    its neighbours stays under 0.51 s (3.01 s after VI init, for keyframes
+    older than 4 s). Protected: loop-edge carriers, the VI window's front and
+    its predecessor, the newest max(8, ba_window) keyframes (the live
+    triangulation partners). One removal a round, the redundancy computed
+    again between rounds (one copy each); the first round is served from
+    ratio_all / npts_all (host arrays, the event's stats) when given.
+    Returns (m, removed slots)."""
+    t_cur = st.kf_time_host[st.last_kf_slot]
+    removed = []
+    first = True
+    while True:
+        active = list(st.kf_slots)
+        protected = {s for e in st.loop_edges for s in e[:2]}
+        if cfg.use_imu and len(active) > cfg.local_window:
+            wfront = len(active) - cfg.local_window
+            protected |= {active[wfront], active[wfront - 1]}
+        protected |= set(active[-max(8, cfg.ba_window):])
+        if first and ratio_all is not None:
+            first = False
+        else:
+            ratio, npts = mapping.kf_redundancy_all(m)
+            h = torch.stack([ratio, npts.to(torch.float32)]).cpu().numpy()
+            ratio_all, npts_all = h[0], h[1]
+        victim = None
+        for i, s in enumerate(active[1:-1], start=1):
+            if s in protected:
+                continue
+            if cfg.use_imu:
+                t_s = st.kf_time_host[s]
+                if t_s >= t_cur - 0.11:
+                    continue
+                timegap = 3.01 if st.vi_inited and t_s < t_cur - 4.0 else 0.51
+                if st.kf_time_host[active[i + 1]] - st.kf_time_host[active[i - 1]] > timegap:
+                    continue
+            if ratio_all[s] > 0.9 and npts_all[s] > 20:
+                victim = s
+                break
+        if victim is None:
+            return m, removed
+        m = remove_keyframe(m, st, cfg, victim, noise, traj=traj)
+        removed.append(victim)
+
+
+def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState, feats,
                     uv, t_kf, fid, imu_rows, noise: IMUNoise, feat_mp=None,
-                    cam_frame=False, ext: factors.Extrinsics | None = None):
-    """Write a frame as keyframe `slot` (SlamSystem._insert_kf_raw): the
-    preintegration over every IMU row since the last keyframe, the delta bias
-    folded into the base bias (Frame::SetInitialNavStateAndBias). After VI
-    init the rows are integrated at the bias carried into this keyframe;
-    before it at zero biases (VI init integrates them again at its estimate,
-    from `st.kf_imu_raw`).
+                    cam_frame=False, ext: factors.Extrinsics | None = None, traj=None):
+    """Write a frame as a keyframe into the slot `alloc_kf_slot` gives
+    (SlamSystem._insert_kf_raw): the preintegration over every IMU row since
+    the last keyframe, the delta bias folded into the base bias
+    (Frame::SetInitialNavStateAndBias). After VI init the rows are integrated
+    at the bias carried into this keyframe; before it at zero biases (VI init
+    integrates them again at its estimate, from `st.kf_imu_raw`).
 
     ns: the NavState written (before VI init: the pose with zero velocity and
     biases). cam_frame: ns.P / ns.R are a camera pose (world-from-camera),
     converted to the body pose through `ext`. imu_rows: (T, 7) tensor of
-    [gyro, acc, dt] rows, or None (the first keyframe).
-    Returns the new MapState; `st` is updated in place."""
+    [gyro, acc, dt] rows, or None (the first keyframe). traj: the TrajStore,
+    for an eviction at capacity.
+    Returns (m, slot); `st` is updated in place."""
     dev = m.mp_pos.device
     P, R = (cam_to_body(ext, ns.P, ns.R) if cam_frame else (ns.P, ns.R))
+    m, slot = alloc_kf_slot(m, st, cfg, noise, traj=traj)
     pre = None
-    if imu_rows is not None and imu_rows.shape[0] > 0:
+    if cfg.use_imu and imu_rows is not None and imu_rows.shape[0] > 0:
         st.kf_imu_raw[slot] = imu_rows
         zero = torch.zeros(3, dtype=imu_rows.dtype, device=dev)
         pre = preintegrate(imu_rows, ns.bg_full if st.vi_inited else zero,
@@ -377,32 +578,41 @@ def insert_keyframe(m: MapState, st: MappingState, slot: int, ns: NavState, feat
         uv, feats.level, feats.angle,
         torch.full((m.F,), -1.0, dtype=torch.float32, device=dev),
         feats.desc, feats.desc_pm1, feats.valid, feat_mp=feat_mp, pre=pre)
+    st.n_kf += 1
+    st.kf_time_host[slot] = float(t_kf)
+    st.kf_id_host[slot] = int(fid)
+    if st.chain_break_pending:
+        st.broken_chain_slots.add(slot)
+        st.chain_break_pending = False
     st.kf_slots.append(slot)
     st.last_kf_slot = slot
     st.last_kf_frame = int(fid)
-    st.kf_id_host[slot] = int(fid)
-    st.n_kf += 1
     if st.first_kf_time is None:
         st.first_kf_time = float(t_kf)
-    return m
+    return m, slot
 
 
-def keyframe_event(m: MapState, st: MappingState, cfg: MappingConfig, frame_id: int,
+def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int,
                    cam: Camera, ext: factors.Extrinsics, gw, noise: IMUNoise,
-                   hists=None, timer=None):
-    """One keyframe event in SlamSystem._local_mapping's order: the pre-BA
-    half (cull / evict, neighbours, triangulation, fusion), the local BA of
-    the state's branch (`local_ba`: visual window before VI init, inverse-
-    depth VI window after), the post-BA half (point-statistics refresh,
-    stats, covisibility). The visual branch may read one covisibility row on
-    the host (before the first event has left one); nothing else in here
-    reads a device value. The caller reads EventResult when it needs the
-    numbers and, as _harvest_event does, keeps the covisibility row and the
-    well-observed count for the next decisions (`note_event_stats`).
+                   hists=None, timer=None, traj=None, max_new=256, ba_Pw=4096):
+    """One keyframe event in SlamSystem._local_mapping's order, ended as
+    _harvest_event ends it: the pre-BA half (cull / evict, neighbours,
+    triangulation, fusion), the local BA of the state's branch (`local_ba`:
+    visual window before VI init, inverse-depth VI window after), the post-BA
+    half (point-statistics refresh, stats, covisibility); then ONE
+    device->host copy of the stats: the covisibility row and the
+    well-observed count are kept for the next decisions (`note_event_stats`),
+    and the redundancy of every keyframe serves the first round of
+    `cull_keyframes`. The visual branch may read one covisibility row on the
+    host (before the first event has left one); nothing else before the
+    stats copy reads a device value.
 
     hists: (K, V) loop-detection histograms, zeros when loop closing is off.
-    timer: optional callable(stage_name) invoked before "pre", "ba", "post"
-    and "end" (a CUDA-event recorder). Returns (m, EventResult)."""
+    timer: optional callable(stage_name) invoked before "pre", "ba", "post",
+    "cull" and "end" (a CUDA-event recorder). traj: the TrajStore whose rows
+    follow a culled keyframe to its heir. max_new: new points per neighbour
+    pair; ba_Pw: landmark slots of the VI window BA.
+    Returns (m, EventResult)."""
     slot = st.last_kf_slot
     dev = m.mp_pos.device
     mark = timer if timer is not None else (lambda name: None)
@@ -411,18 +621,26 @@ def keyframe_event(m: MapState, st: MappingState, cfg: MappingConfig, frame_id: 
     n_before = torch.sum(m.mp_active)
     mark("pre")
     m, _, _, wslots, wvalid, (n_new, n_fused) = mapping.kf_event_pre(
-        m, slot, frame_id, cam, ext, cfg.n_levels, min_obs=CULL_MIN_OBS,
-        n_evict=int(0.07 * m.P), covis_th=COVIS_TH, max_new=cfg.max_new)
+        m, slot, frame_id, cam, ext, cfg.n_levels, min_obs=cfg.cull_min_obs,
+        n_evict=int(0.07 * m.P), covis_th=cfg.covis_th, max_new=max_new)
     n_culled = n_before + n_new - torch.sum(m.mp_active)
     mark("ba")
-    m, ba_stats = local_ba(m, st, cfg, cam, ext, gw, noise)
+    m, ba_stats = local_ba(m, st, cfg, cam, ext, gw, noise, ba_Pw=ba_Pw)
     mark("post")
     m, stats, _, _ = mapping.kf_event_post(
         m, slot, wslots, wvalid, ext, hists, cfg.n_levels,
-        min_obs=(2 if len(st.kf_slots) <= 2 else 3))
+        min_obs=(2 if len(st.kf_slots) <= 2 else 3), refresh=cfg.refresh_stats)
+    mark("cull")
+    covis, red, npts, _, well = stats
+    K = m.K
+    host = torch.cat([well.to(torch.float32).reshape(1), covis, red,
+                      npts.to(torch.float32)]).cpu().numpy()
+    note_event_stats(st, host[1:1 + K], host[0])
+    m, removed = cull_keyframes(m, st, cfg, noise, traj=traj,
+                                ratio_all=host[1 + K:1 + 2 * K], npts_all=host[1 + 2 * K:])
     mark("end")
     return m, EventResult(n_created=n_new, n_fused=n_fused, n_culled=n_culled,
-                          ba=ba_stats, stats=stats)
+                          ba=ba_stats, stats=stats, removed=tuple(removed))
 
 
 def note_event_stats(st: MappingState, covis_row, n_well):

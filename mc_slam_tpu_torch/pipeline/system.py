@@ -1,26 +1,85 @@
-"""Map initialization (port of the initialization pieces of
-mc_slam_tpu/pipeline/system.py): seeding from metric depth (:418-463, with
-tracking_ctl.py:109's prior) and the monocular two-view bootstrap
-`try_initialize` (SlamSystem._try_initialize, :503-577).
+"""The SLAM system: configuration, the orchestrator class and map
+initialization (port of mc_slam_tpu/pipeline/system.py).
 
-The JAX package keeps these as SlamSystem methods reading `self.m`,
-`self.cam`, `self.ext`, `self.frame_id` and `self.cfg`; here they are plain
-functions of those values, for the port's SlamSystem to call.
+`SlamSystem(cam, cfg, Tbc).track(img, t, imu)` is the port's entry point. It
+is synchronous: a frame is tracked, its summary read and its decisions taken
+(LOST, keyframe -> event -> culling, VI-init attempt) before the next frame,
+which is what the JAX package does in its parity mode (one frame per
+dispatch, pipeline depth 1, every summary consumed at once). The class holds
+the `MappingState` and `TrackState` that the step functions of mapping_ctl /
+tracking_ctl / viinit_ctl work on and exposes their fields under the JAX
+class's attribute names; it keeps no second copy of them.
+
+Not ported, and loud about it: `depth=` / `img_right=` (stereo and RGB-D
+rows), relocalization and the reference-keyframe fallback (a LOST system
+stays LOST), loop closing (`enable_loop_closing` is False and cannot be set),
+the device mesh (`enable_mesh` raises), and the asynchronous frame pipeline
+(pair fusion, deferred harvest, rollback).
+
+Also here: seeding from metric depth (`_depth_to_world`, `_alloc_points`) and
+the monocular two-view bootstrap `try_initialize`
+(SlamSystem._try_initialize), as module functions of explicit state.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from mc_slam_tpu_torch.camera import Camera
-from mc_slam_tpu_torch.frontend import matching
+from mc_slam_tpu_torch.camera import Camera, undistort_points
+from mc_slam_tpu_torch.device import resolve
+from mc_slam_tpu_torch.frontend import extractor, matching
 from mc_slam_tpu_torch.geometry import init2view
 from mc_slam_tpu_torch.imu.navstate import navstate_identity
-from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl
-from mc_slam_tpu_torch.slam_map.mapstate import MapState
+from mc_slam_tpu_torch.imu.preintegration import IMUNoise, euroc_noise
+from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl, tracking, tracking_ctl
+from mc_slam_tpu_torch.pipeline.pipebase import LOST, NO_IMAGES_YET, NOT_INITIALIZED, OK
+from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
+from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
+from mc_slam_tpu_torch.solver import factors
 from mc_slam_tpu_torch.solver.factors import Extrinsics
+from mc_slam_tpu_torch.utils.metrics import StageTimer
+
+
+@dataclasses.dataclass
+class SlamConfig:
+    """The JAX package's SlamConfig, field by field with its defaults
+    (examples/eval_clone.py's euroc profile sets max_kf=512, max_mp=16384,
+    n_feat=1024, n_levels=8, local_window=20, use_imu=True)."""
+    max_kf: int = 128
+    max_mp: int = 4096
+    n_feat: int = 512
+    n_levels: int = 4
+    local_window: int = 10          # VI local window (EuRoC uses 20)
+    ba_window: int = 8              # covisible keyframes in the visual local BA
+    min_init_matches: int = 60
+    min_track_inliers: int = 12
+    kf_min_gap: int = 3             # frames
+    kf_max_gap: int = 20
+    kf_ref_ratio: float = 0.8       # NeedNewKeyFrame ratio (src/Tracking.cpp:1865)
+    covis_th: int = 15              # covisibility edge weight (src/KeyFrame.cpp:668)
+    # the JAX package integrates IMU rows in fixed pieces of this length; the
+    # port's preintegration takes any number of rows and does not read it
+    max_imu_per_kf: int = 256
+    vi_init_time: float = 15.0      # seconds (config/euroc.yaml:6)
+    vi_init_max_cond: float = 5e4   # step-3 condition-number acceptance
+    vi_init_scale_tol: float = 0.5  # |s - s_star| / s agreement of steps 2 and 3
+    g_mag: float = 9.81
+    use_imu: bool = False
+    # the VI window BA in its anchored inverse-depth form (LocalBAPRVIDP); the
+    # XYZ form of the window BA is not ported (False raises at the first event)
+    use_idp_ba: bool = True
+    # early exit of the window-BA LM: once an accepted step improves the cost by
+    # less than ba_rtol relative, the remaining iterations keep the state.
+    # 0 disables; monocular-VI scale is a low-gradient mode, keep 0
+    ba_rtol: float = 0.0
+    track_rtol: float = 0.0         # the same for the per-frame pose-only LM
+    refresh_stats: bool = True      # descriptors, normals, scale bands after fusion
+    stereo_baseline: float = 0.11   # metres; read by the depth modes, not ported
+    cull_min_obs: int = 3           # 3 mono, 2 for depth sensors (nThObs)
+    seed: int = 0
 
 
 def _depth_to_world(cam: Camera, ext: Extrinsics, uv, feat_depth, P_b, R_b):
@@ -89,16 +148,6 @@ def _alloc_points(m: MapState, Xw, desc, pm1, level, ref_slot: int, order_sel,
     return m, feat_idx, slots
 
 
-def _fresh_prior_info(pose_info):
-    """15x15 prior information for a freshly (re)seated frame state, order
-    [P, phi, V, dbg, dba]: `pose_info` on pose/velocity, window-BA-level
-    confidence on the biases (see mc_slam_tpu/pipeline/tracking_ctl.py:109)."""
-    d = np.full(15, float(pose_info), np.float32)
-    d[9:12] = 1e6    # gyro bias: sigma ~1e-3 rad/s
-    d[12:15] = 1e4   # accel bias: sigma ~1e-2 m/s^2
-    return np.diag(d)
-
-
 class InitAttempt(NamedTuple):
     """What one two-view attempt did (host values; `two_view` stays on the
     device)."""
@@ -110,7 +159,7 @@ class InitAttempt(NamedTuple):
 
 
 def try_initialize(m: MapState, st: mapping_ctl.MappingState,
-                   cfg: mapping_ctl.MappingConfig, cam: Camera, ext: Extrinsics,
+                   cfg: SlamConfig, cam: Camera, ext: Extrinsics,
                    noise, ref, feats, uv, t, frame_id: int, imu_rows,
                    generator: torch.Generator | None = None, idx_samples=None):
     """Monocular initialization (Tracking::MonocularInitialization): match
@@ -164,12 +213,11 @@ def try_initialize(m: MapState, st: mapping_ctl.MappingState,
     # poses through the extrinsics
     t32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     ns0 = navstate_identity(device=dev)
-    m = mapping_ctl.insert_keyframe(m, st, len(st.kf_slots), ns0, f0, uv0, t0, frame_id,
-                                    None, noise, cam_frame=True, ext=ext)
-    slot1 = len(st.kf_slots)
-    m = mapping_ctl.insert_keyframe(m, st, slot1, ns0._replace(P=t32(C1), R=t32(R1)),
-                                    feats, uv, t, frame_id, imu_rows, noise,
-                                    cam_frame=True, ext=ext)
+    m, slot0 = mapping_ctl.insert_keyframe(m, st, cfg, ns0, f0, uv0, t0, frame_id, None,
+                                           noise, cam_frame=True, ext=ext)
+    m, slot1 = mapping_ctl.insert_keyframe(m, st, cfg, ns0._replace(P=t32(C1), R=t32(R1)),
+                                           feats, uv, t, frame_id, imu_rows, noise,
+                                           cam_frame=True, ext=ext)
     # map points and associations, in feature order, into slots 0 .. n_good-1
     good_idx = np.nonzero(good)[0]
     Xg = Xw[good_idx].astype(np.float32)
@@ -188,7 +236,7 @@ def try_initialize(m: MapState, st: mapping_ctl.MappingState,
         return out
 
     kf_mp = m.kf_mp.clone()
-    kf_mp[0, gi] = slots32
+    kf_mp[slot0, gi] = slots32
     kf_mp[slot1, gi1] = slots32
     m = m._replace(
         mp_pos=head(m.mp_pos, t32(Xg)),
@@ -197,7 +245,7 @@ def try_initialize(m: MapState, st: mapping_ctl.MappingState,
         mp_normal=head(m.mp_normal, t32(Xg / np.maximum(dist, 1e-9)[:, None])),
         mp_min_dist=head(m.mp_min_dist, t32(min_d)),
         mp_max_dist=head(m.mp_max_dist, t32(max_d)),
-        mp_ref_kf=head(m.mp_ref_kf, 0),
+        mp_ref_kf=head(m.mp_ref_kf, slot0),
         mp_angle=head(m.mp_angle, f0.angle[gi]),
         mp_first_kf=head(m.mp_first_kf, 0),
         mp_found=head(m.mp_found, 2.0),
@@ -208,3 +256,275 @@ def try_initialize(m: MapState, st: mapping_ctl.MappingState,
     gw = torch.zeros(3, device=dev)         # no factor reads gravity before VI init
     m, ba_stats = mapping_ctl.local_ba(m, st, cfg, cam, ext, gw, noise, force_all=True)
     return m, InitAttempt(True, False, n, res, ba_stats)
+
+
+class SlamSystem:
+    """Monocular (+IMU) SLAM engine. Feed frames with `track(img, t[, imu])`,
+    read the result with `get_trajectory()`.
+
+    Built on `device` (the card when none is given). The public names are the
+    JAX class's: `track`, `upload`, `flush`, `get_trajectory`,
+    `global_refine`, `reset`, `set_localization_mode`, and the attributes
+    `state`, `m`, `vi_inited`, `gw`, `kf_slots`, `n_kf`, `frame_id`,
+    `n_lost_frames`, `events`, `timers`, `traj`, `last_ns`, `last_pose`,
+    `viinit_log`. `st` (mapping_ctl.MappingState) and `ts`
+    (tracking_ctl.TrackState, None until the map is initialized) hold the
+    state itself."""
+
+    def __init__(self, cam: Camera, cfg: SlamConfig | None = None,
+                 Tbc: np.ndarray | None = None, noise: IMUNoise | None = None,
+                 device=None):
+        self.device = resolve(device)
+        self.cam = cam
+        self.cfg = cfg or SlamConfig()
+        self._Tbc = Tbc
+        self.ext = (factors.extrinsics_from_Tbc(Tbc, device=self.device) if Tbc is not None
+                    else factors.identity_extrinsics(device=self.device))
+        self.noise = noise or euroc_noise(device=self.device)
+        self.m = empty_map(self.cfg.max_kf, self.cfg.max_mp, self.cfg.n_feat,
+                           device=self.device)
+        self.state = NO_IMAGES_YET
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(self.cfg.seed)
+
+        self.st = mapping_ctl.MappingState()
+        self.ts: tracking_ctl.TrackState | None = None
+        self.traj = TrajStore()
+        self.frame_id = 0
+        self.last_time = 0.0
+        self.n_lost_frames = 0
+        # diagnostic log: (frame_id, kind, detail) for "init", "vi_init",
+        # "kf_culled", "lost"
+        self.events: list[tuple] = []
+        self.localization_only = False
+        self._ref = None                # (feats, uv, t) of the two-view reference frame
+        self._init_rows: list = []      # IMU rows since the reference frame
+        self.timers = StageTimer(self.device)
+        self.viinit_log = None          # set to utils.metrics.VIInitLog(dir) to enable
+        # constants of the frame programs, staged once
+        self._consts = tracking_ctl.frame_constants(self.noise, self.device)
+        self._gw0 = torch.tensor([0.0, 0.0, -self.cfg.g_mag], device=self.device)
+        self._pinned: list = []         # staging ring of `upload`: [buffer, copy-done event]
+        # port-only sizes of the keyframe event (mapping_ctl.keyframe_event)
+        self.event_kw = dict(max_new=256, ba_Pw=4096)
+        # what the last call did, for callers and measurement scripts
+        self.last_init: InitAttempt | None = None
+        self.last_outcome: tracking_ctl.FrameOutcome | None = None
+        self.last_gba: mapping_ctl.BAStats | None = None
+        # optional callables(stage_name) called beside the system's own stage
+        # marks of a keyframe event / a VI-init attempt
+        self.event_probe = None
+        self.vi_probe = None
+
+    # ---- the state, under the JAX class's names ----
+    vi_inited = property(lambda self: self.st.vi_inited)
+    kf_slots = property(lambda self: self.st.kf_slots)
+    n_kf = property(lambda self: self.st.n_kf)
+
+    @property
+    def gw(self):
+        return self.ts.gw if self.ts is not None else self._gw0
+
+    @property
+    def last_pose(self):
+        """Body (P, R), world-from-body, of the last tracked frame."""
+        if self.ts is None:
+            return (torch.zeros(3, device=self.device), torch.eye(3, device=self.device))
+        return (self.ts.P, self.ts.R)
+
+    @property
+    def last_ns(self):
+        if self.ts is None or self.ts.ns is None:
+            return navstate_identity(device=self.device)
+        return self.ts.ns
+
+    @property
+    def enable_loop_closing(self):
+        return False
+
+    @enable_loop_closing.setter
+    def enable_loop_closing(self, on):
+        if on:
+            raise NotImplementedError("loop closing is not ported")
+
+    def enable_mesh(self, mesh=None, mesh_e=None):
+        raise NotImplementedError("the mesh-sharded whole-map optimizations are not ported")
+
+    def set_localization_mode(self, on: bool):
+        """Activate / DeactivateLocalizationMode: track against the frozen
+        map, inserting no keyframe and mapping nothing."""
+        self.localization_only = bool(on)
+
+    def reset(self):
+        """System::Reset: clear the map and start over."""
+        self.__init__(self.cam, self.cfg, Tbc=self._Tbc, noise=self.noise,
+                      device=self.device)
+
+    # ------------------------------------------------------------------
+    def upload(self, img):
+        """Stage a frame on the device ahead of `track`, which accepts the
+        returned tensor. uint8 stays uint8 (a quarter of the bytes; the
+        extractor casts on the device). A numpy image goes through one of two
+        pinned staging buffers and an asynchronous copy, so a caller with a
+        frame of lookahead overlaps the transfer with tracking."""
+        if isinstance(img, torch.Tensor):
+            return img.to(self.device, non_blocking=True)
+        a = np.asarray(img)
+        if a.dtype not in (np.uint8, np.float32):
+            a = a.astype(np.float32)
+        src = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return src
+        if len(self._pinned) < 2 or self._pinned[0][0].shape != src.shape \
+                or self._pinned[0][0].dtype != src.dtype:
+            self._pinned = [[torch.empty_like(src).pin_memory(), None] for _ in range(2)]
+        slot = self._pinned.pop(0)
+        self._pinned.append(slot)
+        if slot[1] is not None:
+            slot[1].synchronize()       # the copy that last read this buffer is done
+        slot[0].copy_(src)
+        out = slot[0].to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return out
+
+    def _imu_rows(self, imu):
+        if imu is None or len(imu) == 0:
+            return None
+        if isinstance(imu, torch.Tensor):
+            return imu.to(self.device, torch.float32)
+        return torch.from_numpy(np.ascontiguousarray(imu, np.float32)).to(self.device)
+
+    def track(self, img, t, imu=None, depth=None, img_right=None) -> bool:
+        """Process one frame. img: (H, W) uint8 or float32, a host array or a
+        tensor staged by `upload`; t: time in seconds; imu: (T, 7) rows
+        [gyro, acc, dt] since the previous frame. Returns whether the frame
+        was tracked (False while the map is not initialized, and when LOST).
+        depth / img_right (RGB-D, stereo) are not ported."""
+        if depth is not None or img_right is not None:
+            raise NotImplementedError("RGB-D and stereo input (depth=, img_right=) is not "
+                                      "ported")
+        cfg = self.cfg
+        rows = self._imu_rows(imu)
+        img = self.upload(img)
+        t = float(t)
+        ok = False
+        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+            with self.timers.stage("extract"):
+                feats = extractor.extract(img, n_features=cfg.n_feat, n_levels=cfg.n_levels)
+                uv = undistort_points(self.cam, feats.xy)
+            if self.state == NO_IMAGES_YET:
+                self._ref, self._init_rows = (feats, uv, t), []
+                self.state = NOT_INITIALIZED
+            else:
+                with self.timers.stage("initialize"):
+                    ok = self._try_initialize(feats, uv, t, rows)
+        elif self.state == LOST:
+            # relocalization is not ported: a LOST system stays LOST
+            self._note_lost(dict(mode="lost", n_in=0))
+        else:
+            with self.timers.stage("track"):
+                ok = self._track_frame(img, t, rows)
+        self.last_time = t
+        self.frame_id += 1
+        return ok
+
+    def _note_lost(self, detail):
+        self.n_lost_frames += 1
+        self.events.append((self.frame_id, "lost", detail))
+
+    def _try_initialize(self, feats, uv, t, rows):
+        """The two-view attempt of this frame against the reference frame; on
+        success tracking starts at keyframe 1. IMU rows given since the
+        reference frame become keyframe 1's preintegration."""
+        if rows is not None:
+            self._init_rows.append(rows)
+        imu_rows = torch.cat(self._init_rows) if self._init_rows else None
+        self.m, att = try_initialize(self.m, self.st, self.cfg, self.cam, self.ext,
+                                     self.noise, self._ref, feats, uv, t, self.frame_id,
+                                     imu_rows, generator=self._gen)
+        self.last_init = att
+        if att.reset_ref:
+            self._ref, self._init_rows = (feats, uv, t), []
+        if not att.ok:
+            return False
+        self._ref, self._init_rows = None, []
+        self.ts = tracking_ctl.start_tracking(self.m, self.st, self.cfg.g_mag, t,
+                                              traj=self.traj)
+        slot = self.st.last_kf_slot
+        self.traj.append(tracking._traj_row(self.m, self.ts.P, self.ts.R, slot), t, slot,
+                         self.st.kf_id_host[slot])
+        self.state = OK
+        self.events.append((self.frame_id, "init", dict(n_matches=att.n_matches)))
+        return True
+
+    def _track_frame(self, img, t, rows):
+        """One frame in state OK: the visual or the VI frame program and the
+        decisions on its summary (tracking_ctl.track_visual / track_vi)."""
+        cfg, st = self.cfg, self.st
+        ev_mark = self._marks("lm_", self.event_probe)
+        kw = dict(event_timer=ev_mark, allow_kf=not self.localization_only,
+                  event_kw=self.event_kw)
+        if st.vi_inited:
+            self.m, out = tracking_ctl.track_vi(
+                self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
+                self.noise, self._consts, **kw)
+        else:
+            self.m, out = tracking_ctl.track_visual(
+                self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
+                self.noise, vi_mark=self._marks("vi_", self.vi_probe),
+                vi_log=self.viinit_log, **kw)
+        self.last_outcome = out
+        if out.state == LOST:
+            self.state = LOST
+            self._note_lost(dict(mode="vi" if st.vi_inited else "vis", n_in=out.n_inliers))
+            return False
+        if out.event is not None and out.event.removed:
+            self.events.append((self.frame_id, "kf_culled",
+                                dict(slots=list(out.event.removed))))
+        if out.vi is not None and out.vi.accepted:
+            self.events.append((self.frame_id, "vi_init",
+                                dict(n_kf=out.vi.n_kf, scale=out.vi.scale, cond=out.vi.cond)))
+        return True
+
+    def _marks(self, prefix, probe):
+        own = self.timers.marks(prefix)
+        if probe is None:
+            return own
+
+        def both(name):
+            own(name)
+            probe(name)
+        return both
+
+    # ------------------------------------------------------------------
+    def flush(self):
+        """Bring the recorded state up to date before it is read. The port is
+        synchronous, so only the trajectory rows are pending."""
+        self.traj.flush()
+
+    def global_refine(self):
+        """One whole-map bundle adjustment over all active keyframes
+        (GlobalBundleAdjustment[NavStatePRV]); tracking then continues from
+        the refined newest keyframe. Offline runs call it once at the end
+        of a sequence, before the trajectory is saved."""
+        self.flush()
+        if self.ts is None:
+            return
+        with self.timers.stage("global_refine"):
+            self.m, self.last_gba = mapping_ctl.local_ba(
+                self.m, self.st, self.cfg, self.cam, self.ext, self.gw, self.noise,
+                force_all=True, prune=False)
+        tracking_ctl.reseat_on_newest_keyframe(self.m, self.st, self.ts)
+        self.st.covis_row = None        # the caches of the map before the BA are stale
+        self.st.ref_tracked = None
+
+    def get_trajectory(self):
+        """[(t, P_wb (3,), R_wb (3, 3))] of every tracked frame, composed
+        against the CURRENT keyframe poses (System::SaveTrajectoryTUM):
+        frames recorded before VI init or a whole-map BA inherit those
+        corrections through their reference keyframe, and through its heir
+        when that keyframe was culled."""
+        self.flush()
+        return self.traj.compose(self.m.kf_ns.P, self.m.kf_ns.R, self.m.kf_id,
+                                 self.m.kf_active)

@@ -5,7 +5,8 @@ map (LocalMapping.cpp:200-893), as one synchronous module function.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import time
+from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
 import torch
@@ -17,6 +18,9 @@ from mc_slam_tpu_torch.imu.preintegration import (IMUNoise, PreintState,
 from mc_slam_tpu_torch.pipeline import mapping_ctl, viinit
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, _set_drop
 from mc_slam_tpu_torch.solver import factors
+
+if TYPE_CHECKING:
+    from mc_slam_tpu_torch.pipeline.system import SlamConfig
 
 
 class VIAttempt(NamedTuple):
@@ -38,8 +42,8 @@ class VIAttempt(NamedTuple):
 
 
 def maybe_vi_init(m: MapState, st: mapping_ctl.MappingState,
-                  cfg: mapping_ctl.MappingConfig, t, cam: Camera,
-                  ext: factors.Extrinsics, gw, noise: IMUNoise, traj=None, mark=None):
+                  cfg: SlamConfig, t, cam: Camera, ext: factors.Extrinsics, gw,
+                  noise: IMUNoise, traj=None, mark=None, log=None):
     """Try the VI initialization at time t (SlamSystem._maybe_vi_init).
 
     Gates before the attempt: `vi_init_time` seconds since the first
@@ -55,7 +59,9 @@ def maybe_vi_init(m: MapState, st: mapping_ctl.MappingState,
 
     traj: the TrajStore to rescale, or None. mark: optional
     callable(stage_name) invoked before "gba_visual", "solve", "repreint",
-    "apply", "gba_vi" and "end". Returns (m, VIAttempt); on acceptance
+    "apply", "gba_vi" and "end". log: an optional utils.metrics.VIInitLog that
+    receives every solved attempt (one more host copy each). Returns
+    (m, VIAttempt); on acceptance
     st.vi_inited is set and the caller continues VI tracking from the newest
     keyframe's NavState with `VIAttempt.gw`, a fresh prior, and the IMU rows
     since that keyframe."""
@@ -70,6 +76,7 @@ def maybe_vi_init(m: MapState, st: mapping_ctl.MappingState,
     st.last_init_attempt_nkf = st.n_kf
     dev = m.mp_pos.device
     # clean the visual map first (TryInitVIO's visual-only global BA)
+    t_start = time.perf_counter()
     mark("gba_visual")
     m, ba_visual = mapping_ctl.local_ba(m, st, cfg, cam, ext, gw, noise, force_all=True)
     mark("solve")
@@ -92,6 +99,9 @@ def maybe_vi_init(m: MapState, st: mapping_ctl.MappingState,
                    res.bg, res.ba]).cpu().numpy()           # one device->host copy
     s, s_star, sv, bg_h, ba_h = float(h[0]), float(h[1]), h[2:8], h[8:11], h[11:14]
     cond = float(sv[0] / max(float(sv[-1]), 1e-12))
+    if log is not None:
+        log.log_attempt(t, res, (time.perf_counter() - t_start) * 1e3)
+
     def refused(why):
         mark("end")
         return m, VIAttempt(True, False, why, n_real, s, s_star, cond, bg_h, ba_h,

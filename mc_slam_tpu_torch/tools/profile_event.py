@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import copy
 import dataclasses
 import json
 import subprocess
@@ -69,37 +70,37 @@ def measure(name, fn, rows):
     return out
 
 
-def _event_stages(m, st, cfg, frame, cam, ext, gw, noise, rows, ba_name):
+def _event_stages(m, st, cfg, frame, cam, ext, gw, noise, rows, ba_name, p):
     """One keyframe event stage by stage, then whole; the branch of its BA
     follows `st` (visual window BA before VI init, inverse-depth after)."""
     from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl
     slot = st.last_kf_slot
     hists = torch.zeros((m.K, 1), device=m.mp_pos.device)
     m1 = measure("pre: cull_and_evict", lambda: mapping.cull_and_evict(
-        m, frame, min_obs=mapping_ctl.CULL_MIN_OBS, n_evict=int(0.07 * m.P)), rows)
+        m, frame, min_obs=cfg.cull_min_obs, n_evict=int(0.07 * m.P)), rows)
     nb4, nbv4, wslots, wvalid = measure(
-        "pre: kf_neighbors", lambda: mapping.kf_neighbors(m1, slot, covis_th=mapping_ctl.COVIS_TH),
+        "pre: kf_neighbors", lambda: mapping.kf_neighbors(m1, slot, covis_th=cfg.covis_th),
         rows)
     m2, _ = measure("pre: create_points x4 neighbours",
                     lambda: mapping.create_points_with_neighbor_scan(
-                        m1, slot, nb4, cam, ext, cfg.max_new, cfg.n_levels), rows)
+                        m1, slot, nb4, cam, ext, p.max_new, cfg.n_levels), rows)
     m3, _ = measure("pre: fuse_neighbors (8 pairs)",
                     lambda: mapping.fuse_neighbors(m2, slot, nb4, nbv4, cam, ext), rows)
-    m4, ba = measure(ba_name, lambda: mapping_ctl.local_ba(m3, st, cfg, cam, ext, gw, noise),
-                     rows)
+    m4, ba = measure(ba_name, lambda: mapping_ctl.local_ba(m3, st, cfg, cam, ext, gw, noise,
+                                                           ba_Pw=p.ba_Pw), rows)
     m5 = measure("post: refresh_point_stats",
                  lambda: mapping.refresh_point_stats(m4, wslots, wvalid, ext, cfg.n_levels), rows)
     measure("post: stats + covisibility (refresh off)",
             lambda: mapping.kf_event_post(m5, slot, wslots, wvalid, ext, hists, cfg.n_levels,
                                           refresh=False), rows)
-    measure("whole event (keyframe_event)",
-            lambda: mapping_ctl.keyframe_event(m, st, cfg, frame, cam, ext, gw, noise), rows)
+    measure("whole event (keyframe_event: with the stats copy and keyframe culling)",
+            lambda: mapping_ctl.keyframe_event(m, copy.deepcopy(st), cfg, frame, cam, ext, gw,
+                                               noise, max_new=p.max_new, ba_Pw=p.ba_Pw), rows)
     return ba
 
 
 def profile_bootstrap(chip_smoke, dev, smi, out):
     """Stage tables of the bootstrap path (see the module docstring)."""
-    import copy
     from mc_slam_tpu_torch import camera as tcam
     from mc_slam_tpu_torch.frontend import extractor
     from mc_slam_tpu_torch.imu.preintegration import PreintState, preintegrate_batch
@@ -113,10 +114,8 @@ def profile_bootstrap(chip_smoke, dev, smi, out):
     ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device=dev)
     noise = chip_smoke.euroc_noise(device=dev)
     with chip_smoke.capture_bootstrap_states() as cap:
-        res = chip_smoke.run_bootstrap(seq, p, cam, ext, dev)
-    cfg = mapping_ctl.MappingConfig(
-        n_levels=p.n_levels, local_window=p.local_window, max_new=p.max_new, ba_Pw=p.ba_Pw,
-        vi_init_time=p.vi_init_time)
+        res = chip_smoke.run_bootstrap(seq, p, cam, dev)
+    cfg = chip_smoke.slam_config(p)
     gw0 = torch.tensor([0.0, 0.0, -cfg.g_mag], device=dev)
     rows = []
     measure("profiler warm-up (not a stage)", lambda: mapping.cull_and_evict(cap["events"][0][0], 0), [])
@@ -152,9 +151,10 @@ def profile_bootstrap(chip_smoke, dev, smi, out):
     # ---- the last visual keyframe event ----
     print(f"[event] visual keyframe {st_e.last_kf_slot} at frame {frame_e}: "
           f"{int(m_e.mp_active.sum())} active points, {len(st_e.kf_slots)} keyframes", flush=True)
-    mapping_ctl.keyframe_event(m_e, copy.deepcopy(st_e), cfg, frame_e, cam, ext, gw0, noise)
+    mapping_ctl.keyframe_event(m_e, copy.deepcopy(st_e), cfg, frame_e, cam, ext, gw0, noise,
+                               max_new=p.max_new, ba_Pw=p.ba_Pw)
     ba_e = _event_stages(m_e, st_e, cfg, frame_e, cam, ext, gw0, noise, rows,
-                         "BA: visual_ba window (10 iterations, 2 rounds, full point table)")
+                         "BA: visual_ba window (10 iterations, 2 rounds, full point table)", p)
 
     # ---- the accepted VI initialization ----
     m_v, st_v, t_v, traj_v = cap["vi_attempts"][-1]
@@ -223,11 +223,11 @@ def main():
     ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device=dev)
     captured = []
     chip_smoke.run_track_and_map(seq, p, cam, ext, dev,
-                                 on_event=lambda m, st, i: captured.append((m, st.kf_slots[:], i)))
-    m, slots, frame = captured[-1]
-    st = mapping_ctl.MappingState(kf_slots=slots, last_kf_slot=slots[-1], vi_inited=True)
-    cfg = mapping_ctl.MappingConfig(n_levels=p.n_levels, local_window=p.local_window,
-                                    max_new=p.max_new, ba_Pw=p.ba_Pw)
+                                 on_event=lambda m, st, i: captured.append(
+                                     (m, copy.deepcopy(st), i)))
+    m, st, frame = captured[-1]
+    slots = st.kf_slots
+    cfg = chip_smoke.slam_config(p)
     noise = chip_smoke.euroc_noise(device=dev)
     gw = torch.tensor([0.0, 0.0, -9.81], device=dev)
     slot = st.last_kf_slot
@@ -236,11 +236,12 @@ def main():
           f"{max(cfg.ba_window, cfg.local_window) + 4}", flush=True)
 
     # one untimed pass first: allocator, cuSOLVER / cuBLAS handles, profiler start-up
-    mapping_ctl.keyframe_event(m, st, cfg, frame, cam, ext, gw, noise)
+    mapping_ctl.keyframe_event(m, copy.deepcopy(st), cfg, frame, cam, ext, gw, noise,
+                               max_new=p.max_new, ba_Pw=p.ba_Pw)
     rows = []
     measure("profiler warm-up (not a stage)", lambda: mapping.cull_and_evict(m, frame), [])
     ba = _event_stages(m, st, cfg, frame, cam, ext, gw, noise, rows,
-                       "BA: window_vi_ba_map (8 iterations)")
+                       "BA: window_vi_ba_map (8 iterations)", p)
     result = {"card": smi, "frame": frame, "slot": slot, "n_landmarks": int(ba.n_landmarks),
               "stages": rows}
     args.out.parent.mkdir(parents=True, exist_ok=True)

@@ -29,12 +29,12 @@ m/s^2, accelerometer bias 2e-2 m/s^2 (a 5 s window with cond ~3e3, squared by
 the normal equations: float32 input differences of 1e-6 show at this level in
 the worst-observed direction), cond within a factor 2."""
 import copy
+import dataclasses
 import types
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 import torch
 
 import chip_smoke
@@ -42,11 +42,12 @@ from mc_slam_tpu.frontend.extractor import Features as JFeatures
 from mc_slam_tpu.pipeline import mapping as jmap
 from mc_slam_tpu.pipeline.pipebase import NOT_INITIALIZED, OK
 from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem
+from mc_slam_tpu_torch.pipeline.system import SlamConfig as TSlamConfig
 from mc_slam_tpu.pipeline.tracking_ctl import TrackingCtlMixin
 from mc_slam_tpu.solver import ba as jba
 from mc_slam_tpu_torch import camera as tcam, convert
 from mc_slam_tpu_torch.frontend import extractor, matching
-from mc_slam_tpu_torch.imu.preintegration import euroc_noise, preintegrate
+from mc_slam_tpu_torch.imu.preintegration import euroc_noise
 from mc_slam_tpu_torch.pipeline import (mapping as tmap, mapping_ctl, system, tracking_ctl,
                                         viinit_ctl)
 from mc_slam_tpu_torch.slam_map.mapstate import empty_map
@@ -60,9 +61,7 @@ _np = lambda x: jax.tree_util.tree_map(np.asarray, x)
 
 
 def _cfg():
-    return mapping_ctl.MappingConfig(
-        n_levels=BOOT.n_levels, local_window=BOOT.local_window, max_new=BOOT.max_new,
-        ba_Pw=BOOT.ba_Pw, vi_init_time=BOOT.vi_init_time)
+    return chip_smoke.slam_config(BOOT)
 
 
 def jax_system(monkeypatch, cam, tm=None, st=None, frame_id=0):
@@ -177,7 +176,7 @@ def test_try_initialize_matches_jax(monkeypatch):
 def test_too_few_matches_resets_the_reference():
     seq, cam, ext, _, _ = boot_run()
     (f0, uv0), (f1, uv1) = _extract(seq, cam, 0), _extract(seq, cam, 1)
-    cfg = mapping_ctl.MappingConfig(n_levels=BOOT.n_levels, min_init_matches=10 ** 6)
+    cfg = TSlamConfig(n_levels=BOOT.n_levels, min_init_matches=10 ** 6)
     m0 = empty_map(BOOT.max_kf, BOOT.max_mp, BOOT.n_feat, device="cpu")
     st = mapping_ctl.MappingState()
     m, att = system.try_initialize(m0, st, cfg, cam, ext, euroc_noise(device="cpu"),
@@ -197,11 +196,11 @@ def test_visual_keyframe_event_matches_jax(monkeypatch):
     # ---- pre-BA half: every table ----
     jm1, _, _, wslots, wvalid = jmap.kf_event_pre(
         jm, i32(slot), jnp.asarray(frame), js.cam, js.ext, i32(cfg.n_levels),
-        min_obs=mapping_ctl.CULL_MIN_OBS, n_evict=int(0.07 * tm.P),
-        covis_th=mapping_ctl.COVIS_TH, max_new=cfg.max_new)
+        min_obs=cfg.cull_min_obs, n_evict=int(0.07 * tm.P),
+        covis_th=cfg.covis_th, max_new=BOOT.max_new)
     tm1, _, _, wslots_t, wvalid_t, (n_new, _) = tmap.kf_event_pre(
-        tm, slot, frame, cam, ext, cfg.n_levels, min_obs=mapping_ctl.CULL_MIN_OBS,
-        n_evict=int(0.07 * tm.P), covis_th=mapping_ctl.COVIS_TH, max_new=cfg.max_new)
+        tm, slot, frame, cam, ext, cfg.n_levels, min_obs=cfg.cull_min_obs,
+        n_evict=int(0.07 * tm.P), covis_th=cfg.covis_th, max_new=BOOT.max_new)
     assert_maps_match(jm1, tm1, rtol=1e-4, atol=1e-4, msg="after kf_event_pre")
     assert int(n_new) > 0
 
@@ -209,7 +208,7 @@ def test_visual_keyframe_event_matches_jax(monkeypatch):
     js.m = jm1
     for ba_window in (8, 3):                  # all covisibles inside / some outside
         js.cfg.ba_window = ba_window
-        c2 = mapping_ctl.MappingConfig(**{**cfg.__dict__, "ba_window": ba_window})
+        c2 = dataclasses.replace(cfg, ba_window=ba_window)
         w_j = js._ba_window_slots()
         f_j = [s for s in js._covisible_stale(slot, ba_window + 6, strong=True)
                if s not in w_j][:4]
@@ -280,7 +279,7 @@ def test_need_new_kf_decisions_match_jax():
     assert not tracking_ctl.need_new_kf(None, st, cfg, 55, 15)
 
 
-def test_maybe_vi_init_matches_jax(monkeypatch):
+def test_maybe_vi_init_matches_jax(monkeypatch, tmp_path):
     seq, cam, ext, res, cap = boot_run()
     tm, st, t, traj = cap["vi_attempts"][0]
     act = list(st.kf_slots)
@@ -295,7 +294,15 @@ def test_maybe_vi_init_matches_jax(monkeypatch):
 
     st2, traj2 = copy.deepcopy(st), copy.deepcopy(traj)
     before = traj2.compose(tm.kf_ns.P, tm.kf_ns.R, tm.kf_id, tm.kf_active)
-    m2, att = viinit_ctl.maybe_vi_init(tm, st2, cfg, t, cam, ext, gw0, noise, traj=traj2)
+    from mc_slam_tpu_torch.utils.metrics import VIInitLog
+    log = VIInitLog(str(tmp_path))
+    m2, att = viinit_ctl.maybe_vi_init(tm, st2, cfg, t, cam, ext, gw0, noise, traj=traj2,
+                                       log=log)
+    log.close()
+    # the diagnostic log received the solved attempt
+    t_log, s_log, s_star_log = map(float, (tmp_path / "scale.txt").read_text().split())
+    assert t_log == t and abs(s_log - att.scale) < 1e-5 and abs(s_star_log - att.scale_star) < 1e-5
+    assert len((tmp_path / "biasa.txt").read_text().split()) == 4
     assert att.attempted and att.accepted and att.reason == "accepted" and st2.vi_inited
     assert att.n_kf == detail["n_kf"] == 10
     np.testing.assert_allclose(att.scale, detail["scale"], rtol=1e-3)
@@ -347,15 +354,9 @@ def test_maybe_vi_init_matches_jax(monkeypatch):
     few = copy.deepcopy(st)
     few.kf_slots = few.kf_slots[:7]
     assert viinit_ctl.maybe_vi_init(tm, few, cfg, t, cam, ext, gw0, noise)[1].reason == "keyframes"
-    tight = mapping_ctl.MappingConfig(**{**cfg.__dict__, "vi_init_max_cond": 10.0})
+    tight = dataclasses.replace(cfg, vi_init_max_cond=10.0)
     refused = viinit_ctl.maybe_vi_init(tm, copy.deepcopy(st), tight, t, cam, ext, gw0, noise)[1]
     assert refused.attempted and not refused.accepted and refused.reason == "cond"
-
-
-def test_whole_map_ba_over_40_keyframes_raises():
-    st = mapping_ctl.MappingState(kf_slots=list(range(41)), last_kf_slot=40)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        mapping_ctl.local_ba(None, st, _cfg(), None, None, None, None, force_all=True)
 
 
 def test_bootstrap_run_passes_its_own_checks():

@@ -71,7 +71,28 @@ def test_bootstrap_modules_are_covered(mod):
                                for l in imports)
 
 
-@pytest.mark.parametrize("tool", ["bench_hamming", "profile_event"])
+SYSTEM_MODULES = ("solver.ba_chunked", "pipeline.pipebase", "pipeline.system",
+                  "pipeline.mapping_ctl", "pipeline.tracking_ctl", "pipeline.trajstore",
+                  "utils.metrics", "io.euroc", "io.trajectory", "sim.euroc_writer", "settings",
+                  "convert", "tools.eval_clone")
+
+
+@pytest.mark.parametrize("mod", SYSTEM_MODULES)
+def test_system_modules_are_covered(mod):
+    """Every module of the SlamSystem slice is among those the import test
+    walks, names neither jax nor the JAX package in an import line, and
+    imports by itself in a fresh interpreter without pulling either in."""
+    assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
+    src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
+    imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
+    assert not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
+                   for l in imports)
+    proc = _run(f"import sys, mc_slam_tpu_torch.{mod}\n"
+                "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("tool", ["bench_hamming", "profile_event", "eval_clone"])
 def test_measurement_tools_refuse_without_gpu(tool):
     proc = subprocess.run([sys.executable, "-m", f"mc_slam_tpu_torch.tools.{tool}"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,

@@ -32,6 +32,7 @@ from mc_slam_tpu_torch import convert
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import euroc_noise
 from mc_slam_tpu_torch.pipeline import mapping as tmap, mapping_ctl
+from mc_slam_tpu_torch.pipeline.system import SlamConfig
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
 
 from torch_port_helpers import (SMALL, assert_maps_match, jax_cam, jax_ext, jax_map,
@@ -61,18 +62,17 @@ def test_one_keyframe_event_matches_jax():
     seq, cam, ext, res, captured = small_run()
     tm, st, frame = captured[1]
     slot = st.last_kf_slot
-    cfg = mapping_ctl.MappingConfig(n_levels=SMALL.n_levels, local_window=SMALL.local_window,
-                                    max_new=SMALL.max_new, ba_Pw=SMALL.ba_Pw)
+    cfg = SlamConfig(n_levels=SMALL.n_levels, local_window=SMALL.local_window, use_imu=True)
     jm, jcam, jext = jax_map(tm), jax_cam(cam), jax_ext()
 
     # ---- pre-BA half ----
     jm1, nb4, nbv4, wslots, wvalid = jmap.kf_event_pre(
         jm, i32(slot), jnp.asarray(frame), jcam, jext, i32(cfg.n_levels),
-        min_obs=mapping_ctl.CULL_MIN_OBS, n_evict=int(0.07 * tm.P),
-        covis_th=mapping_ctl.COVIS_TH, max_new=cfg.max_new)
+        min_obs=cfg.cull_min_obs, n_evict=int(0.07 * tm.P),
+        covis_th=cfg.covis_th, max_new=SMALL.max_new)
     tm1, nb4_t, nbv4_t, wslots_t, wvalid_t, (n_new, n_fused) = tmap.kf_event_pre(
-        tm, slot, frame, cam, ext, cfg.n_levels, min_obs=mapping_ctl.CULL_MIN_OBS,
-        n_evict=int(0.07 * tm.P), covis_th=mapping_ctl.COVIS_TH, max_new=cfg.max_new)
+        tm, slot, frame, cam, ext, cfg.n_levels, min_obs=cfg.cull_min_obs,
+        n_evict=int(0.07 * tm.P), covis_th=cfg.covis_th, max_new=SMALL.max_new)
     for a, b in ((nb4, nb4_t), (nbv4, nbv4_t), (wslots, wslots_t), (wvalid, wvalid_t)):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     assert_maps_match(jm1, tm1, rtol=1e-4, atol=1e-4, msg="after kf_event_pre")
@@ -87,10 +87,11 @@ def test_one_keyframe_event_matches_jax():
         jm1, i32(prob["all_slots"][:n_real]), jnp.asarray(prob["idx_i"][:n_real]),
         jnp.asarray(prob["idx_j"][:n_real]), jnp.asarray(prob["ev"][:n_real]),
         i32(n_real), jnp.asarray(prob["free"][:n_real]), jcam, jext, jnp.asarray(GW),
-        2e-5, 5e-3, prior=None, iters=mapping_ctl.BA_ITERS, rtol=0.0, Pw=cfg.ba_Pw,
+        2e-5, 5e-3, prior=None, iters=mapping_ctl.BA_ITERS, rtol=0.0, Pw=SMALL.ba_Pw,
         do_prune=True)
     noise = euroc_noise(device="cpu")
-    tm2, ba = mapping_ctl.local_ba_idp(tm1, st, cfg, cam, ext, torch.from_numpy(GW), noise)
+    tm2, ba = mapping_ctl.local_ba_idp(tm1, st, cfg, cam, ext, torch.from_numpy(GW), noise,
+                                       ba_Pw=SMALL.ba_Pw)
     jn, tn = jax.tree_util.tree_map(np.asarray, jm2.kf_ns), convert.to_numpy(tm2.kf_ns)
     np.testing.assert_allclose(tn["P"], jn.P, rtol=0, atol=1e-3)
     np.testing.assert_allclose(tn["R"], jn.R, rtol=0, atol=1e-3)
@@ -130,8 +131,7 @@ def test_event_cost_curve_matches_jax():
     side against the k-th point of the port's curve."""
     _, cam, ext, _, captured = small_run()
     tm, st, _ = captured[1]
-    cfg = mapping_ctl.MappingConfig(n_levels=SMALL.n_levels, local_window=SMALL.local_window,
-                                    max_new=SMALL.max_new, ba_Pw=SMALL.ba_Pw)
+    cfg = SlamConfig(n_levels=SMALL.n_levels, local_window=SMALL.local_window, use_imu=True)
     prob = mapping_ctl.window_problem(st, cfg)
     n = prob["n_real"]
     t = lambda a, dt: torch.as_tensor(np.asarray(a[:n]), dtype=dt)
@@ -140,7 +140,7 @@ def test_event_cost_curve_matches_jax():
         tm, t(prob["all_slots"], torch.int64), t(prob["idx_i"], torch.int64),
         t(prob["idx_j"], torch.int64), t(prob["ev"], torch.float32), n,
         t(prob["free"], torch.float32), cam, ext, torch.from_numpy(GW), 2e-5, 5e-3,
-        iters=3, two_phase=False, Pw=cfg.ba_Pw, do_prune=False)
+        iters=3, two_phase=False, Pw=SMALL.ba_Pw, do_prune=False)
     curve = stats.costs.numpy()
     assert curve.shape == (4,) and np.all(np.diff(curve) <= 0)
     jm, jcam, jext = jax_map(tm), jax_cam(cam), jax_ext()
@@ -151,13 +151,13 @@ def test_event_cost_curve_matches_jax():
             jm, i32(prob["all_slots"][:n]), jnp.asarray(prob["idx_i"][:n]),
             jnp.asarray(prob["idx_j"][:n]), jnp.asarray(prob["ev"][:n]), i32(n),
             jnp.asarray(prob["free"][:n]), jcam, jext, jnp.asarray(GW), 2e-5, 5e-3,
-            iters=k, two_phase=False, Pw=cfg.ba_Pw, do_prune=False)
+            iters=k, two_phase=False, Pw=SMALL.ba_Pw, do_prune=False)
         tm_k = tm._replace(kf_ns=torch_map(jm2).kf_ns, mp_pos=torch.from_numpy(np.array(jm2.mp_pos)))
         _, st_k = tidp.window_vi_ba_map(
             tm_k, t(prob["all_slots"], torch.int64), t(prob["idx_i"], torch.int64),
             t(prob["idx_j"], torch.int64), t(prob["ev"], torch.float32), n,
             t(prob["free"], torch.float32), cam, ext, torch.from_numpy(GW), 2e-5, 5e-3,
-            iters=2, two_phase=False, Pw=cfg.ba_Pw, do_prune=False)
+            iters=2, two_phase=False, Pw=SMALL.ba_Pw, do_prune=False)
         np.testing.assert_allclose(float(st_k.cost0), curve[k], rtol=2e-2, err_msg=f"k={k}")
 
 
@@ -201,7 +201,7 @@ def test_imu_edge_lists_match_jax(prev_idx, broken):
 
 
 def test_window_problem_pad_rule_and_predecessor():
-    cfg = mapping_ctl.MappingConfig(local_window=3, ba_window=2)
+    cfg = SlamConfig(local_window=3, ba_window=2)
     st = mapping_ctl.MappingState(kf_slots=[0, 1, 2, 3, 4], last_kf_slot=4)
     prob = mapping_ctl.window_problem(st, cfg)
     # window = the newest 3; its front's predecessor (slot 1) joins as fixed
@@ -244,11 +244,11 @@ def test_insert_keyframe_matches_jax_tables():
     assert int(tm.kf_id[slot]) == frame and (tm.kf_ur[slot] == -1).all()
     assert int((tm.kf_mp[slot] >= 0).sum()) >= SMALL.fb_min_inliers
     # the first keyframe carries no preintegration
-    m0 = mapping_ctl.insert_keyframe(
-        empty_map(4, 16, tm.F, device="cpu"), mapping_ctl.MappingState(), 0,
-        NavState(*[a[slot] for a in tm.kf_ns]),
+    m0, slot0 = mapping_ctl.insert_keyframe(
+        empty_map(4, 16, tm.F, device="cpu"), mapping_ctl.MappingState(),
+        SlamConfig(use_imu=True), NavState(*[a[slot] for a in tm.kf_ns]),
         types.SimpleNamespace(level=tm.kf_level[slot], angle=tm.kf_angle[slot],
                               desc=tm.kf_desc[slot], desc_pm1=tm.kf_pm1[slot],
                               valid=tm.kf_feat_valid[slot]),
         tm.kf_uv[slot], 0.0, 0, None, euroc_noise(device="cpu"))
-    assert float(m0.kf_preint.dT[0]) == 0.0 and (m0.kf_mp[0] == -1).all()
+    assert slot0 == 0 and float(m0.kf_preint.dT[0]) == 0.0 and (m0.kf_mp[0] == -1).all()

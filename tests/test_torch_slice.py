@@ -34,7 +34,8 @@ from mc_slam_tpu.slam_map import mapstate as jms
 from mc_slam_tpu.solver import ba_vi as jbavi, factors as jfac
 from mc_slam_tpu_torch import convert
 from mc_slam_tpu_torch.frontend.orb import pack_bits
-from mc_slam_tpu_torch.pipeline import mapping as tmapping, system as tsystem
+from mc_slam_tpu_torch.pipeline import (mapping as tmapping, system as tsystem,
+                                        tracking_ctl as ttracking_ctl)
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
 
 torch.set_num_threads(2)
@@ -96,7 +97,7 @@ def test_convert_round_trip_keeps_dtypes():
 
 def test_map_seeding_helpers(scene):
     """write_keyframe, _depth_to_world, _alloc_points (keyframe at the origin,
-    the JAX caller's case) and _fresh_prior_info against the JAX code."""
+    the JAX caller's case) and fresh_prior_info against the JAX code."""
     rng = np.random.default_rng(1)
     F = P.n_feat
     jcam = _jax_cam(scene.cam)
@@ -140,7 +141,7 @@ def test_map_seeding_helpers(scene):
                 np.testing.assert_allclose(got[k][kk], vv, rtol=1e-6, err_msg=k + kk)
         else:
             np.testing.assert_allclose(got[k], v, rtol=1e-6, err_msg=k)
-    np.testing.assert_array_equal(tsystem._fresh_prior_info(1e2),
+    np.testing.assert_array_equal(ttracking_ctl.fresh_prior_info(1e2),
                                   TrackingCtlMixin._fresh_prior_info(1e2))
     md = rng.uniform(0.1, 10, 50).astype(np.float32)
     for n_levels in (3, 8, 10):
@@ -160,7 +161,7 @@ def _run_two_frames_jax(scene):
                    ba=chip_smoke.TRUE_BA.astype(np.float32),
                    dbg=np.zeros(3, np.float32), dba=np.zeros(3, np.float32))
     prior = jbavi.PriorFactor(cam=jnp.asarray(0, jnp.int32), ns0=ns,
-                              info=jnp.asarray(tsystem._fresh_prior_info(1e3)),
+                              info=jnp.asarray(ttracking_ctl.fresh_prior_info(1e3)),
                               valid=jnp.asarray(1.0, jnp.float32))
     pfm, pan = np.full(F, -1, np.int32), np.zeros(F, np.float32)
     gw = jnp.asarray([0.0, 0.0, -9.81])
@@ -171,7 +172,7 @@ def _run_two_frames_jax(scene):
         out = jtracking.frame_pipeline_vi(
             jm, jnp.asarray(seq.imgs[i]), jnp.asarray(rawp), jcam, jext, j_noise(), ns,
             gw, prior, pfm, pan, np.int32(0), np.float32(0.05),
-            jnp.asarray(tsystem._fresh_prior_info(1e2)), sigma_bg=2e-5, sigma_ba=5e-3,
+            jnp.asarray(ttracking_ctl.fresh_prior_info(1e2)), sigma_bg=2e-5, sigma_ba=5e-3,
             n_features=F, n_levels=P.n_levels, iters=P.iters, has_prev=True)
         out = jax.tree_util.tree_map(np.asarray, out)
         feats, _, ns, fmp, H_prior, mp_found, mp_vis, _, summary = out

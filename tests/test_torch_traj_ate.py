@@ -1,5 +1,7 @@
 """The small host-side pieces of the bootstrap slice against the JAX
-package: the trajectory log (append / rescale / compose), the ATE module (a
+package: the trajectory log (append / rescale / compose, and reparent /
+truncate / replace_at / replace_last / pop_last before and after a rescale;
+composed poses to 1e-5), the ATE module (a
 numpy copy: identical results), the batched preintegration (equal to one
 sequence at a time, to float32 rounding), and conversion of the bootstrap's
 result tuples field by field."""
@@ -62,6 +64,106 @@ def test_trajstore_matches_jax(rng):
         np.testing.assert_allclose(P1, P0, rtol=1e-5, atol=1e-5)
         np.testing.assert_allclose(R1, R0, rtol=1e-5, atol=1e-5)
     assert TrajStore().compose(kf_P, kf_R, kf_id, kf_active) == []
+
+def _row(rng):
+    return (rng.normal(size=3).astype(np.float32), _rot(rng),
+            rng.normal(size=3).astype(np.float32), _rot(rng))
+
+
+def _assert_same_traj(js, ts, kf, msg):
+    kf_P, kf_R, kf_id, kf_active = kf
+    ref = js.compose(kf_P, kf_R, kf_id, kf_active)
+    got = ts.compose(*[torch.from_numpy(a) for a in kf])
+    assert len(got) == len(ref) == len(ts) == len(js), msg
+    assert [m[1:] for m in ts.meta] == [m[1:] for m in js.meta], msg
+    for (t0, P0, R0), (t1, P1, R1) in zip(ref, got):
+        assert t0 == t1
+        np.testing.assert_allclose(P1, P0, rtol=1e-5, atol=1e-5, err_msg=msg)
+        np.testing.assert_allclose(R1, R0, rtol=1e-5, atol=1e-5, err_msg=msg)
+
+
+@pytest.mark.parametrize("op", ["reparent", "truncate", "replace_at", "pop_last"])
+def test_trajstore_edits_match_jax(rng, op):
+    """One editing method on the same 80 rows (64 in the JAX store's device
+    buffer, 16 pending), once before a rescale and once after it."""
+    js, ts = JTrajStore(cap=128), TrajStore()
+    K = 4
+    kf = (rng.normal(size=(K, 3)).astype(np.float32), np.stack([_rot(rng) for _ in range(K)]),
+          np.array([0, 7, 19, 23], np.int32), np.array([True, True, True, True]))
+    for i in range(80):
+        row, k = _row(rng), i % 3
+        meta = (0.05 * i, k, int(kf[2][k]) if i != 13 else 99)   # row 13: a recycled slot
+        js.append(tuple(jnp.asarray(a) for a in row), *meta)
+        ts.append(tuple(torch.from_numpy(a) for a in row), *meta)
+        if i == 40:
+            ts.flush()                  # some rows stacked, some pending, as in a run
+
+    def edit(n):
+        if op == "reparent":
+            # keyframe (slot 1, id 7) is culled; slot 3 (id 23) is its heir
+            P_hk, R_hk = rng.normal(size=3).astype(np.float32), _rot(rng)
+            js.reparent(1, 7, 3, 23, P_hk, R_hk)
+            ts.reparent(1, 7, 3, 23, P_hk, R_hk)
+            assert all(m[1] != 1 or m[2] != 7 for m in ts.meta)
+            assert sum(m[1:] == (3, 23) for m in ts.meta) >= 20
+            js.reparent(2, 555, 0, 0, P_hk, R_hk)       # no such rows: nothing changes
+            ts.reparent(2, 555, 0, 0, P_hk, R_hk)
+        elif op == "truncate":
+            # the JAX store drops pending rows only; its buffer rows are then
+            # overwritten by position, so compare a cut inside the pending part
+            keep = 70 if n == 0 else 66
+            js.truncate(keep)
+            ts.truncate(keep)
+            ts.truncate(keep + 5)                        # nothing to drop
+            assert len(ts) == keep
+        elif op == "replace_at":
+            for i in ((5, 75) if n == 0 else (63, 64)):  # a stacked row and a pending one
+                row = _row(rng)
+                js.replace_at(i, tuple(jnp.asarray(a) for a in row))
+                ts.replace_at(i, tuple(torch.from_numpy(a) for a in row))
+            row = _row(rng)
+            js.replace_last(tuple(jnp.asarray(a) for a in row))
+            ts.replace_last(tuple(torch.from_numpy(a) for a in row))
+        else:
+            js.pop_last()
+            ts.pop_last()
+
+    edit(0)
+    _assert_same_traj(js, ts, kf, f"{op} before the rescale")
+    js.rescale(3.5)
+    ts.rescale(torch.tensor(3.5))
+    _assert_same_traj(js, ts, kf, f"{op}, then rescale")
+    if op in ("truncate", "pop_last"):
+        # after the rescale the JAX store has flushed everything; append anew
+        for i in range(3):
+            row = _row(rng)
+            js.append(tuple(jnp.asarray(a) for a in row), 9.0 + i, 0, 0)
+            ts.append(tuple(torch.from_numpy(a) for a in row), 9.0 + i, 0, 0)
+    edit(1)
+    _assert_same_traj(js, ts, kf, f"{op} after the rescale")
+
+
+def test_trajstore_truncate_into_the_stacked_rows(rng):
+    """The port's rows are one block: a cut below the pending part drops
+    stacked rows too, and later appends follow them."""
+    ts = TrajStore()
+    rows = [_row(rng) for _ in range(10)]
+    for i, row in enumerate(rows[:8]):
+        ts.append(tuple(torch.from_numpy(a) for a in row), float(i), 0, 0)
+        if i == 5:
+            ts.flush()
+    ts.truncate(3)
+    assert len(ts) == 3 and ts.pend == [] and ts.block[0].shape[0] == 3
+    ts.append(tuple(torch.from_numpy(a) for a in rows[9]), 9.0, 0, 0)
+    out = ts.compose(np.zeros((1, 3), np.float32), np.eye(3, dtype=np.float32)[None],
+                     np.zeros(1, np.int32), np.ones(1, bool))
+    assert [o[0] for o in out] == [0.0, 1.0, 2.0, 9.0]
+    np.testing.assert_allclose(out[3][1], rows[9][0], atol=1e-6)
+    np.testing.assert_allclose(out[2][1], rows[2][0], atol=1e-6)
+    ts.pop_last()
+    ts.pop_last()
+    assert len(ts) == 2
+    TrajStore().pop_last()                               # empty: nothing happens
 
 
 @pytest.mark.parametrize("with_scale", [True, False])

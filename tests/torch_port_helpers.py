@@ -75,6 +75,49 @@ def jax_ext():
     return jfac.extrinsics_from_Tbc(chip_smoke.TBC)
 
 
+def jax_system_from_port(monkeypatch, cam, tm, st, traj=None, frame_id=0, profile=None,
+                         **cfg_kw):
+    """A JAX SlamSystem in parity mode (one frame a dispatch, pipeline depth
+    1, every summary consumed at once) that holds the port's state: the
+    MapState `tm` converted, and the host bookkeeping of `st` / `traj` as
+    `convert.host_state_to_dict` hands it over."""
+    from mc_slam_tpu.pipeline.pipebase import OK
+    from mc_slam_tpu.pipeline.system import SlamConfig, SlamSystem
+    p = profile or BOOT
+    monkeypatch.setenv("MC_SLAM_PAIR", "1")
+    monkeypatch.setenv("MC_SLAM_LAG_MAX", "1")
+    kw = dict(max_kf=tm.K, max_mp=tm.P, n_feat=tm.F, n_levels=p.n_levels,
+              local_window=p.local_window, use_imu=True, vi_init_time=p.vi_init_time)
+    kw.update(cfg_kw)
+    js = SlamSystem(jax_cam(cam), SlamConfig(**kw), Tbc=chip_smoke.TBC)
+    js._summary_ready = lambda pend: True
+    js.frame_id = frame_id
+    js.state = OK
+    js.m = jax.tree_util.tree_map(jnp.asarray, jax_map(tm))
+    d = convert.host_state_to_dict(st, traj)
+    for name in convert.HOST_FIELDS.values():
+        setattr(js, name, d[name])
+    js.kf_imu_raw = d["kf_imu_raw"]
+    if d["covis_row"] is not None:
+        js._covis_row_cache = (st.last_kf_slot, d["covis_row"])
+    if d.get("traj_rows") is not None:
+        for i, meta in enumerate(d["traj_meta"]):
+            js.traj.append(tuple(jnp.asarray(a[i]) for a in d["traj_rows"]), *meta)
+    return js
+
+
+def assert_host_state_matches(js, st):
+    """The host tables of a JAX SlamSystem against the port's MappingState."""
+    d = convert.host_state_to_dict(st)
+    for name in convert.HOST_FIELDS.values():
+        if name == "_ref_tracked_cache":
+            continue            # a cache: the JAX class drops it at other moments
+        assert getattr(js, name) == d[name], name
+    assert set(js.kf_imu_raw) == set(d["kf_imu_raw"])
+    for k, rows in d["kf_imu_raw"].items():
+        np.testing.assert_array_equal(np.asarray(js.kf_imu_raw[k]), rows, err_msg=f"rows of {k}")
+
+
 def assert_maps_match(jm, tm, rtol=1e-5, atol=1e-5, skip=(), msg=""):
     """Integer / bool / descriptor tables exactly, float tables to tolerance."""
     got = convert.to_numpy(tm)
@@ -114,7 +157,8 @@ def small_run():
 
 @functools.lru_cache(maxsize=None)
 def boot_run():
-    """chip_smoke.py's path 3 at the BOOT profile on the CPU: two-view
+    """chip_smoke.py's path 3 at the BOOT profile on the CPU, through
+    SlamSystem.track: two-view
     initialization from raw frames, visual tracking and mapping, VI
     initialization at 5 s, four VI frames (~50 s). Returns (seq, cam, ext,
     result, captured), `captured` as chip_smoke.capture_bootstrap_states
@@ -124,5 +168,5 @@ def boot_run():
     cam = chip_smoke.profile_camera(BOOT, "cpu")
     ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device="cpu")
     with chip_smoke.capture_bootstrap_states() as captured:
-        res = chip_smoke.run_bootstrap(seq, BOOT, cam, ext, "cpu")
+        res = chip_smoke.run_bootstrap(seq, BOOT, cam, "cpu")
     return seq, cam, ext, res, captured
