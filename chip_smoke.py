@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's Mono+IMU bootstrap, tracking and mapping on one NVIDIA GPU.
+"""Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization and
+loop closing on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -63,7 +64,30 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     landmark-chunked whole-map VI BA (16 chunks of 1024 landmarks, keyframes
     padded to 32) against the dense one: keyframe positions within 5 mm,
     final costs within 1 %, both cost curves never rising; ms, kernels
-    launched and peak memory of each. Then the system's stage timers.
+    launched and peak memory of each. Then the system's stage timers;
+ 8. path 5, "euroc-revisit", on path 4's system (loop closing on since frame
+    0, so every keyframe has its BoW histogram): 3 blank frames with IMU rows
+    lose the camera (three "lost" events); the carried pose and gyro bias are
+    corrupted (5 m away, bias off by 0.05 / 0.04 / 0.03 rad/s); frames 200-264
+    of the same run are fed again, wall clock and IMU rows continuing. Fails
+    unless: a "reloc" event within 5 frames, within 5 cm of the pose the system
+    estimated at that source frame; the 20-frame bias window completes; the
+    gyro bias error falls under 0.4 of the corruption on every axis; at least
+    20 VI frames follow with none lost; a keyframe inserted after the
+    relocalization starts a new IMU chain; loop detection ran ("lc_diag"
+    events; each is printed, no closure is expected of a camera that tracks
+    the old landmarks);
+ 9. phase "loop", a planted seam at full table width: the keyframes inserted
+    since frame 264 get their own copies of the landmarks they observe and a
+    drift of 0.2 m / 3 degrees that grows along the chain (`plant_seam`); then
+    `loopctl.try_close_loop` on the revisit keyframes in turn until one closes.
+    Fails unless: a keyframe older than the seam reaches Sim3; the measured
+    Sim3 equals the relative pose before the drift to 2 cm / 0.5 degrees; at
+    least 40 guided matches; exactly one loop closed; the revisit keyframes
+    come back within 3 cm; seam covisibility of at least 10; no cost curve
+    rises; kernel == twin on the guided verification's search. Prints ms and
+    flagged syncs of detect, Sim3 batch, verify, pose graph, both fusion
+    rounds and the whole-map BA, and the kernels each launches when run alone.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -89,10 +113,14 @@ from mc_slam_tpu_torch.frontend.orb import pack_bits
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import euroc_noise
 from mc_slam_tpu_torch.eval.ate import ate_rmse, horn_align
-from mc_slam_tpu_torch.pipeline import (mapping, mapping_ctl, system, tracking,
-                                        tracking_ctl)
+from mc_slam_tpu_torch.geometry.sim3solver import Sim3Result
+from mc_slam_tpu_torch import lie as tlie
+from mc_slam_tpu_torch.pipeline import (loopclosing, loopctl, mapping, mapping_ctl, system,
+                                        tracking, tracking_ctl)
+from mc_slam_tpu_torch.pipeline.pipebase import LOST
 from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
-from mc_slam_tpu_torch.slam_map.mapstate import empty_map
+from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix, empty_map,
+                                                 observation_counts)
 from mc_slam_tpu_torch.solver import ba_vi, factors
 
 # the reference's EuRoC Tbc (config/euroc.yaml:40-44)
@@ -742,6 +770,389 @@ def run_refine_and_chunked(res, seq: Sequence, p: Profile):
                 chunked={k: v for k, v in out["chunked"].items() if k != "P"})
 
 
+# ---------------------------------------------------------------------------
+# Path 5, "euroc-revisit": kidnap, relocalization, the bias window, live loop
+# detection, and the phase "loop" on a planted seam
+# ---------------------------------------------------------------------------
+
+BG_CORRUPTION = np.array([0.05, -0.04, 0.03], np.float32)   # tests/test_e2e_reloc.py:85
+RELOC_MAX_FRAMES = 5        # a "reloc" event within so many replayed frames
+RELOC_POS_TOL = 0.05        # m, against the system's own pose at the same source frame
+SEAM_ROT_DEG = 3.0          # the planted drift: a rotation about a skew axis through the
+SEAM_T = (0.16, -0.10, 0.07)   # newest revisit keyframe, and a translation of 0.20 m
+SEAM_SIM3_T_TOL = 0.02      # m, measured Sim3 against the planted relative pose
+SEAM_SIM3_R_TOL = 0.5       # degrees
+SEAM_POSE_TOL = 0.03        # m, revisit keyframes after the closure against before the drift
+
+
+def run_revisit(res, seq: Sequence, p: Profile, src_start: int, n_replay: int,
+                n_blank: int = 3, recorder=None):
+    """Path 5 up to the live detection, on the system `run_bootstrap` left:
+    `n_blank` blank frames (with IMU rows) lose the camera; the carried pose
+    and gyro bias are then corrupted as tests/test_e2e_reloc.py does (pose far
+    away, bias off by BG_CORRUPTION), so that only place recognition can
+    re-acquire; then the rendered frames src_start .. src_start + n_replay - 1
+    of the same run are fed again, wall clock and IMU rows continuing.
+    Returns a dict of what happened (frames, events, the source frame of the
+    relocalization, keyframes inserted after it); raises on the gates: LOST
+    after the blank frames with one "lost" event each, a "reloc" event within
+    RELOC_MAX_FRAMES, the bias window completed, no frame lost afterwards."""
+    slam = res["slam"]
+    st = slam.st
+    dev = slam.device
+    cuda = dev.type == "cuda"
+    fdt = 1.0 / p.fps
+    t = float(seq.times[res["last_frame"]])
+    n_ev0 = len(slam.events)
+    kf_before = list(st.kf_slots)
+    traj_before = {round(float(x[0]), 6): np.asarray(x[1]) for x in slam.get_trajectory()}
+    blank = np.full((p.height, p.width), 40, np.uint8)
+    frames = []
+
+    def step(img, rows, src):
+        nonlocal t
+        t += fdt
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with sync_watch(cuda) as caught:
+            ok = slam.track(img, t, rows)
+            if cuda:
+                torch.cuda.synchronize()
+        frames.append(dict(src=src, t=t, ok=ok, state=slam.state,
+                           ms=(time.perf_counter() - t0) * 1e3, syncs=count_syncs(caught),
+                           window=slam.reloc_buf is not None,
+                           mode=slam.last_outcome.mode if ok else "lost",
+                           keyframe=slam.last_outcome.keyframe if ok else None))
+        return ok
+
+    orig = match_cuda.hamming_top2_windowed
+    if recorder is not None:
+        match_cuda.hamming_top2_windowed = recorder
+    try:
+        for j in range(n_blank):
+            step(blank, seq.imu[src_start - n_blank + j], None)
+        lost = [e for e in slam.events[n_ev0:] if e[1] == "lost"]
+        if slam.state != LOST or len(lost) != n_blank:
+            raise AssertionError(f"after {n_blank} blank frames: state {slam.state}, "
+                                 f"{len(lost)} lost events")
+        far = torch.tensor([5.0, 5.0, -3.0], device=dev)
+        bg_corrupt = torch.as_tensor(TRUE_BG.astype(np.float32) + BG_CORRUPTION, device=dev)
+        slam.last_ns = slam.last_ns._replace(P=far, R=torch.eye(3, device=dev), bg=bg_corrupt,
+                                             dbg=torch.zeros(3, device=dev))
+        slam.last_pose = (far, torch.eye(3, device=dev))
+        slam.velocity = (torch.zeros(3, device=dev), torch.eye(3, device=dev))
+        i_reloc = None
+        for k in range(n_replay):
+            src = src_start + k
+            if recorder is not None:
+                recorder.frame = src
+                if i_reloc is None:
+                    recorder.keep_frames.add(src)     # the relocalizing frame's searches
+            ok = step(seq.imgs[src], seq.imu[src], src)
+            if ok and i_reloc is None:
+                i_reloc = k
+                if slam.reloc_buf is None:
+                    raise AssertionError("relocalized after VI init, but no bias window opened")
+                P_reloc = slam.last_pose[0].cpu().numpy()
+            if i_reloc is None and k + 1 >= RELOC_MAX_FRAMES:
+                raise AssertionError(f"no relocalization within {RELOC_MAX_FRAMES} frames: "
+                                     f"{[e[2] for e in slam.events[n_ev0:]]}")
+            if i_reloc is not None and not ok:
+                raise AssertionError(f"replayed frame {src} lost after the relocalization "
+                                     f"({frames[-1]})")
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+    if slam.reloc_buf is not None:
+        raise AssertionError("the bias window did not complete")
+    events = slam.events[n_ev0:]
+    reloc = [e for e in events if e[1] == "reloc"]
+    src_reloc = src_start + i_reloc
+    P_then = traj_before[round(float(seq.times[src_reloc]), 6)]
+    new_kf = [s_ for s_ in st.kf_slots if s_ not in kf_before]
+    n_window = sum(f["mode"] == "reloc_window" for f in frames)
+    after = [f for f in frames if f["src"] is not None and f["mode"] == ""]
+    bg = slam.last_ns.bg_full.cpu().numpy()
+    return dict(frames=frames, events=events, reloc=reloc[0][2], src_reloc=src_reloc,
+                i_reloc=i_reloc, reloc_pos_err=float(np.linalg.norm(P_reloc - P_then)),
+                new_kf=new_kf, kf_before=kf_before, n_window=n_window, n_vi_after=len(after),
+                bg=bg, bg_err=np.abs(bg - TRUE_BG),
+                chain_break=bool(new_kf) and new_kf[0] in st.broken_chain_slots,
+                diags=[e for e in events if e[1] == "lc_diag"],
+                sim3=[e for e in events if e[1] in ("sim3_result", "verify_result", "loop")])
+
+
+def check_revisit(rv, p: Profile, n_vi_min: int = 20):
+    """Path 5's gates on what `run_revisit` returns; raises on the first that
+    fails."""
+    if rv["reloc_pos_err"] >= RELOC_POS_TOL:
+        raise AssertionError(f"relocalized {rv['reloc_pos_err']} m from the pose estimated at "
+                             f"source frame {rv['src_reloc']}")
+    if not np.all(rv["bg_err"] < 0.4 * np.abs(BG_CORRUPTION)):
+        raise AssertionError(f"gyro bias after the window {rv['bg']} (true {TRUE_BG}, corrupted "
+                             f"by {BG_CORRUPTION})")
+    if rv["n_window"] < 19 or rv["n_vi_after"] < n_vi_min:
+        raise AssertionError(f"{rv['n_window']} window frames, {rv['n_vi_after']} VI frames "
+                             f"after them")
+    if not rv["new_kf"] or not rv["chain_break"]:
+        raise AssertionError(f"keyframes after the relocalization {rv['new_kf']}; the first "
+                             f"starts a new IMU chain: {rv['chain_break']}")
+    if not rv["diags"]:
+        raise AssertionError("no loop detection ran (no lc_diag event)")
+
+
+def _se3_pow(R, t, alpha, c):
+    """A fraction of the rigid motion x -> R x + t, taken about the point c:
+    the rotation Exp(alpha Log R) about c, and alpha of c's displacement."""
+    Ra = tlie.so3_exp(alpha * tlie.so3_log(R))
+    return Ra, alpha * (R @ c + t - c) + c - Ra @ c
+
+
+def plant_seam(m, st, revisit, spread, R_d, t_d):
+    """Turn a revisit into an open loop with a known drift. The keyframes of
+    the NEW side, `spread` + `revisit` (slots; `spread` are the keyframes
+    inserted between the place revisited and the revisit, oldest first), get
+    their OWN copies of the landmarks they observe (the point rows copied to
+    free slots, those keyframes' associations redirected, originals that
+    nobody observes any more deactivated), so they share no landmark with the
+    older keyframes. Then keyframes and points are moved by a drift that grows
+    along the chain as real drift does: the `spread` keyframes by the
+    fractions 1/(n+1) .. n/(n+1) of the rigid motion (R_d, t_d), the revisit
+    keyframes by all of it; every copy that a revisit keyframe observes with
+    them, every other point with the keyframe nearest its creation (the rule
+    by which `loopclosing.close_loop` moves points back).
+    Returns (m, dict of the poses before the drift and the copy count)."""
+    dev = m.mp_pos.device
+    P = m.P
+
+    def seen_by(slots):
+        ks = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+        mp = m.kf_mp[ks]
+        held = (mp >= 0) & m.kf_feat_valid[ks]
+        mask = _set_drop(torch.zeros(P, dtype=torch.bool, device=dev),
+                         torch.where(held, mp, P).reshape(-1).to(torch.int64), True)
+        return ks, mp, held, mask & m.mp_active
+
+    new_side = list(spread) + list(revisit)
+    ks_new, mp_new, held, seen = seen_by(new_side)
+    rev, _, _, seen_rev = seen_by(revisit)
+    src = torch.nonzero(seen)[:, 0]
+    free = torch.nonzero(~m.mp_active)[:, 0]
+    if free.shape[0] < src.shape[0]:
+        raise AssertionError(f"{src.shape[0]} landmarks to copy, {free.shape[0]} free slots")
+    dst = free[:src.shape[0]]
+    remap = torch.arange(P, dtype=torch.int32, device=dev)
+    remap[src] = dst.to(torch.int32)
+    fields = {f: getattr(m, f).clone() for f in m._fields if f.startswith("mp_")}
+    for f in fields.values():
+        f[dst] = f[src]
+    # a copy is created, for the purposes of drift and correction, on the new
+    # side: with the first revisit keyframe when one of them observes it
+    first_new = m.kf_id[ks_new[0]]
+    fields["mp_first_kf"][dst] = torch.where(
+        seen_rev[src], m.kf_id[rev[0]], torch.clamp(m.mp_first_kf[src], min=first_new))
+    fields["mp_ref_kf"][dst] = torch.where(seen_rev[src], rev[0], ks_new[0]).to(torch.int32)
+    kf_mp = m.kf_mp.clone()
+    kf_mp[ks_new] = torch.where(held, remap[torch.clamp(mp_new, 0, P - 1).to(torch.int64)],
+                                mp_new)
+    m = m._replace(kf_mp=kf_mp, **fields)
+    m = m._replace(mp_active=m.mp_active & ~(seen & (observation_counts(m) < 0.5)))
+
+    # the drift of every keyframe slot (identity where none is planted)
+    K = m.K
+    Rk = torch.eye(3, device=dev).repeat(K, 1, 1)
+    tk = torch.zeros((K, 3), device=dev)
+    n = len(spread)
+    centre = m.kf_ns.P[rev[-1]]
+    for j, s_ in enumerate(spread):
+        Rk[s_], tk[s_] = _se3_pow(R_d, t_d, (j + 1) / (n + 1), centre)
+    Rk[rev], tk[rev] = R_d, t_d
+    before = dict(P=m.kf_ns.P.clone(), R=m.kf_ns.R.clone(), n_copied=int(src.shape[0]))
+    mv = lambda M, v: (M @ v[..., None])[..., 0]
+    ns = m.kf_ns._replace(P=mv(Rk, m.kf_ns.P) + tk, R=Rk @ m.kf_ns.R, V=mv(Rk, m.kf_ns.V))
+    # each point with the active keyframe nearest its creation
+    act = torch.as_tensor(list(st.kf_slots), dtype=torch.int64, device=dev)
+    ids_sorted, order = torch.sort(m.kf_id[act].to(torch.int64), stable=True)
+    tid = m.mp_first_kf.to(torch.int64)
+    Ka = act.shape[0]
+    pos = torch.clamp(torch.searchsorted(ids_sorted, tid), 0, Ka - 1)
+    left = torch.clamp(pos - 1, 0, Ka - 1)
+    use_left = torch.abs(ids_sorted[left] - tid) <= torch.abs(ids_sorted[pos] - tid)
+    owner = act[order[torch.where(use_left, left, pos)]]
+    m = m._replace(kf_ns=ns, mp_pos=mv(Rk[owner], m.mp_pos) + tk[owner],
+                   mp_normal=mv(Rk[owner], m.mp_normal))
+    return m, before
+
+
+def _angle_deg(R):
+    c = (np.trace(R) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def run_loop_phase(slam, revisit, spread, recorder=None, idx=None):
+    """The phase "loop": plant a seam on the system's map (`plant_seam`, the
+    drift SEAM_ROT_DEG / SEAM_T), run `loopctl.try_close_loop` on the revisit
+    keyframes in turn, oldest first, with a stage probe, until one closes the
+    loop, and hold the result against the planted drift. Returns a dict of the measured values; raises on a gate:
+    a candidate older than the revisit reaches Sim3, the measured Sim3 equals
+    the relative pose before the drift, at least 40 guided matches, one loop
+    closed, the revisit keyframes back within SEAM_POSE_TOL, seam covisibility
+    of at least 10, no cost curve rising."""
+    st, ts, cfg = slam.st, slam.ts, slam.cfg
+    dev = slam.device
+    cuda = dev.type == "cuda"
+    axis = torch.tensor([0.3, 0.2, 0.93], device=dev)
+    R_d = tlie.so3_exp(axis / torch.linalg.norm(axis) * float(np.radians(SEAM_ROT_DEG)))
+    m0 = slam.m
+    c = m0.kf_ns.P[revisit[-1]]                 # the rotation's centre
+    t_d = torch.tensor(SEAM_T, device=dev) + c - R_d @ c
+    m1, before = plant_seam(m0, st, revisit, spread, R_d, t_d)
+    W0 = covisibility_matrix(m1).cpu().numpy()
+    old = [s_ for s_ in st.kf_slots if s_ not in revisit and s_ not in spread]
+    if W0[np.ix_(list(spread) + list(revisit), old)].max() > 0:
+        raise AssertionError("the new side still shares landmarks with the older keyframes")
+    moved = (m1.kf_ns.P[revisit[-1]] - before["P"][revisit[-1]]).norm().item()
+    loop = slam._loopctx
+    loop.detector.consistent_groups = []
+    n_closed0, n_ev0 = st.n_loops_closed, len(slam.events)
+    orig = match_cuda.hamming_top2_windowed
+    if recorder is not None:
+        match_cuda.hamming_top2_windowed = recorder
+    # the revisit keyframes in the order of their events, as the live system
+    # would have met the seam: the consistency streak builds from one to the
+    # next, and the first closure ends the phase
+    attempts = []
+    try:
+        for cur in revisit:
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with sync_watch(cuda) as caught:
+                loop.probe = timer = EventTimer(cuda, caught)
+                m2, out = loopctl.try_close_loop(m1, st, cfg, ts, loop, cur, slam.frame_id,
+                                                 slam.cam, slam.ext, slam.noise, idx=idx)
+                if cuda:
+                    torch.cuda.synchronize()
+            if out is not None:
+                attempts.append(dict(cur=cur, cands=out.cands, sim3=out.sim3,
+                                     verify=out.verify, diag=dict(loop.detector.last_diag)))
+            if out is None or out.closed is not None:
+                break
+    finally:
+        loop.probe = None
+        match_cuda.hamming_top2_windowed = orig
+    total_ms = (time.perf_counter() - t0) * 1e3
+    if out is None:
+        raise AssertionError("the loop gates are shut")
+    slam.m = m2
+    events = slam.events[n_ev0:]
+    if out.sim3 is None or not any(c in old for c in out.sim3["cands"]):
+        raise AssertionError(f"no older keyframe reached Sim3: {attempts}")
+    if out.closed is None or st.n_loops_closed != n_closed0 + 1:
+        raise AssertionError(f"no loop closed: {attempts}")
+    cand = out.closed["cand"]
+    ver = [v for v in out.verify if v["cand"] == cand][-1]
+    if ver["n_guided"] < loopctl.MIN_GUIDED:
+        raise AssertionError(f"guided matches {ver}")
+    # the measured Sim3 (loop camera -> current camera) against the relative
+    # camera pose of the two keyframes BEFORE the drift
+    row = out.sim3["cands"].index(cand)
+    res_ev = [e for e in events if e[1] == "sim3_result"][-1][2]
+    Rbc = slam.ext.Rcb.T.cpu().numpy()
+    pbc = -(Rbc @ slam.ext.tcb.cpu().numpy())
+    Pb, Rb = before["P"].cpu().numpy(), before["R"].cpu().numpy()
+    cam_pose = lambda k: (Rb[k] @ Rbc, Pb[k] + Rb[k] @ pbc)
+    (Rc_cur, C_cur), (Rc_loop, C_loop) = cam_pose(cur), cam_pose(cand)
+    R_exp, t_exp = Rc_cur.T @ Rc_loop, Rc_cur.T @ (C_loop - C_cur)
+    meas = out.measured[cand]
+    dt = float(np.linalg.norm(meas["t"] - t_exp))
+    dr = _angle_deg(meas["R"].T @ R_exp)
+    if not (dt < SEAM_SIM3_T_TOL and dr < SEAM_SIM3_R_TOL and abs(meas["s"] - 1.0) < 1e-6):
+        raise AssertionError(f"measured Sim3 off the planted relative pose by {dt} m, {dr} "
+                             f"degrees (s {meas['s']})")
+    P_after = m2.kf_ns.P.cpu().numpy()
+    back = float(np.linalg.norm(P_after[revisit] - Pb[revisit], axis=1).max())
+    if back >= SEAM_POSE_TOL:
+        raise AssertionError(f"revisit keyframes {back} m from where they stood before the "
+                             f"drift of {moved} m")
+    W2 = covisibility_matrix(m2).cpu().numpy()
+    seam = float(W2[np.ix_(revisit, old)].max())
+    if seam < 10:
+        raise AssertionError(f"seam covisibility {seam}")
+    curves = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+              for k, v in out.curves.items() if v is not None}
+    for name, c in curves.items():
+        c = c.reshape(len(c), -1)
+        if not np.isfinite(c).all() or np.any(np.diff(c, axis=0) > 1e-6 * np.abs(c[:-1])):
+            raise AssertionError(f"{name}: cost curve {c.T}")
+    return dict(cur=cur, cand=cand, cands=out.cands, sim3=res_ev, verify=out.verify,
+                closed=out.closed, diag=dict(loop.detector.last_diag), attempts=attempts,
+                n_copied=before["n_copied"], drift_m=moved, sim3_dt_m=dt, sim3_dr_deg=dr,
+                back_m=back, seam_covis=seam, total_ms=total_ms, stage_ms=timer.ms(),
+                measured=meas,
+                stage_syncs=timer.syncs(), m_planted=m1,
+                costs={k: [float(np.ravel(v[0])[0]), float(np.ravel(v[-1])[0])]
+                       for k, v in curves.items()})
+
+
+def loop_stage_replays(slam, lp):
+    """The stages of the loop event that `run_loop_phase` closed, as closures
+    that run each ALONE on the planted map (pure functions of the map; the
+    host state is read, not changed), chained in the event's order:
+    [(name, fn)]. For the kernel counts of chip_smoke.py and the stage table
+    of tools/profile_event.py."""
+    st, cfg, dev = slam.st, slam.cfg, slam.device
+    cam, ext, loop = slam.cam, slam.ext, slam._loopctx
+    m1, cur, cand = lp["m_planted"], lp["cur"], lp["cand"]
+    meas = lp["measured"]
+    cv = dict(c=cand, s=meas["s"], R=meas["R"], t=meas["t"], n_in=lp["closed"]["n_inliers"])
+    cands = torch.as_tensor([cand] * loopctl.N_CAND, dtype=torch.int64, device=dev)
+    bars = torch.as_tensor([loopctl.BAR_STREAKED] * loopctl.N_CAND, device=dev)
+    grp = torch.as_tensor(loopctl.verify_group(st, cfg, loop, cand), dtype=torch.int64,
+                          device=dev)
+    s_c, R_c, t_c = loopctl._sim3_tensors(cv, dev)
+    body = Sim3Result(True, *loopctl.body_sim3(ext, s_c, R_c, t_c), None, cv["n_in"])
+    # the keyframes as they were when the loop closed (the closure added none)
+    slots = list(st.kf_slots)
+    edges = [e for e in st.loop_edges if set(e[:2]) != {cur, cand}]
+    state = {}
+
+    def posegraph():
+        state["pg"] = loopclosing.close_loop(m1, slots, cur, cand, body, cam, fix_scale=True,
+                                             loop_edges=edges, kf_ids=st.kf_id_host)
+        return state["pg"]
+
+    def fuse(key_in, key_out, n):
+        def run():
+            m = state[key_in]
+            cur_side, loop_side, _ = loopctl.seam_sides(m, st, cfg, cur, cand)
+            state[key_out] = loopctl.fuse_seam(m, loop_side, cur_side, n, cam, ext)
+            return state[key_out]
+        return run
+
+    def gba():
+        state["gba"] = mapping_ctl.local_ba(state["f1"], st, cfg, cam, ext, slam.gw, slam.noise,
+                                            force_all=True, prune=False)[0]
+        return state["gba"]
+
+    return [
+        ("detect (BoW scores of every keyframe + covisibility matrix)",
+         lambda: loop.detector.detect_dispatch(m1, cur)),
+        (f"sim3 batch ({loopctl.N_CAND} candidates: mutual match, 300 hypotheses, refit, "
+         f"10 LM iterations)",
+         lambda: loopclosing.sim3_ransac_batch(m1, None, cur, cands, bars, cam, ext=ext,
+                                               fix_scale=True, generator=loop.generator)),
+        ("verify (guided search of the whole map at 8 px)",
+         lambda: loopclosing.guided_match_count(m1, cur, cand, grp, s_c, R_c, t_c, cam,
+                                                ext=ext)),
+        (f"pose graph ({len(slots)} keyframes, 40 LM iterations) + point correction",
+         posegraph),
+        ("fusion round 1 (3 x 3 keyframes, both ways, 4 px)", fuse("pg", "f1", 3)),
+        ("whole-map BA (force_all, no prune)", gba),
+        ("fusion round 2 (2 x 2 keyframes)", fuse("gba", "f2", 2)),
+    ]
+
+
 @contextlib.contextmanager
 def capture_bootstrap_states():
     """While active, record the states a bootstrap run hands to its stages
@@ -767,10 +1178,10 @@ def capture_bootstrap_states():
             captured["vi_attempts"].append((m, copy.deepcopy(st), t, copy.deepcopy(traj)))
         return orig[1](m, st, cfg, t, *a, traj=traj, **k)
 
-    def spy_need(m, st, cfg, fid, n_in):
+    def spy_need(m, st, cfg, fid, n_in, *a):
         before = dict(last_kf_frame=st.last_kf_frame, ref_tracked=st.ref_tracked,
                       kf_slots=list(st.kf_slots), last_kf_slot=st.last_kf_slot)
-        out = orig[2](m, st, cfg, fid, n_in)
+        out = orig[2](m, st, cfg, fid, n_in, *a)
         captured["need_kf"].append((before, fid, n_in, out, st.ref_tracked,
                                     m if before["ref_tracked"] is None else None))
         return out
@@ -976,7 +1387,7 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
     """One run of `run_bootstrap` on the card with its report lines and
     checks (paths 3 and 4); with `refine` also `run_refine_and_chunked`.
     Returns (detail dict, kernel launches of the run, max kernel-vs-twin
-    error on the recorded searches)."""
+    error on the recorded searches, `run_bootstrap`'s dict with the system)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = SearchRecorder(keep_frames=(), timed=False)
@@ -1086,6 +1497,107 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
                              "dP_m": r["dP_m"], "dcost_rel": r["dcost_rel"],
                              "dense": tolist(r["dense"]), "chunked": tolist(r["chunked"])}
         detail["timers"] = slam.timers.summary()
+    return detail, launches, err, res
+
+
+REVISIT_SRC, REVISIT_FRAMES = 200, 65   # path 5 feeds frames 200 .. 264 again
+
+
+def revisit_phase(res, seq: Sequence, p: Profile):
+    """Path 5 on the card, on the system path 4 left: `run_revisit` and its
+    gates, the live detections, then the phase "loop" (`run_loop_phase`) with
+    the kernel counts of its stages run alone. Returns (detail dict, kernel
+    launches of the path, max kernel-vs-twin error on the recorded searches)."""
+    slam = res["slam"]
+    st = slam.st
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = SearchRecorder(keep_frames=set(), timed=False)
+    hamming_top2_windowed.launches = 0
+    t0 = time.time()
+    rv = run_revisit(res, seq, p, REVISIT_SRC, REVISIT_FRAMES, recorder=rec)
+    wall = time.time() - t0
+    fr = rv["frames"]
+    lost_ms = [f["ms"] for f in fr if not f["ok"]]
+    win_ms = [f["ms"] for f in fr if f["mode"] == "reloc_window" and f["keyframe"] is None]
+    vi_ms = [f["ms"] for f in fr if f["mode"] == "" and f["keyframe"] is None]
+    f_reloc = next(f for f in fr if f["mode"] == "reloc")
+    _phase("path5", f"kidnap: 3 blank frames -> LOST, 3 lost events (a failed attempt "
+                    f"{np.median(lost_ms):.1f} ms, {fr[1]['syncs']} flagged syncs); frames "
+                    f"{REVISIT_SRC}..{REVISIT_SRC + REVISIT_FRAMES - 1} fed again: relocalized "
+                    f"at replayed frame {rv['i_reloc']} (source frame {rv['src_reloc']}) against "
+                    f"keyframe {rv['reloc']['kf']} with {rv['reloc']['n_in']} inliers, "
+                    f"{f_reloc['ms']:.1f} ms, {f_reloc['syncs']} flagged syncs, "
+                    f"{rv['reloc_pos_err'] * 1e3:.1f} mm from the pose estimated there "
+                    f"(< {RELOC_POS_TOL * 1e3:.0f})")
+    _phase("path5", f"bias window: {rv['n_window']} visual frames (median "
+                    f"{np.median(win_ms):.1f} ms), then the 20-frame solve; gyro bias "
+                    f"{[round(float(x), 5) for x in rv['bg']]} (true {TRUE_BG.tolist()}, corrupted "
+                    f"by {[round(float(x), 3) for x in BG_CORRUPTION]}): error {np.round(rv['bg_err'], 5).tolist()} "
+                    f"(< 0.4 of the corruption on every axis); {rv['n_vi_after']} VI frames "
+                    f"after it, none lost (median {np.median(vi_ms):.1f} ms); keyframes "
+                    f"inserted after the relocalization {rv['new_kf']}, the first starts a "
+                    f"new IMU chain: {rv['chain_break']}")
+    check_revisit(rv, p)
+    for fid, _, d in rv["diags"]:
+        _phase("path5", f"live detection at frame {fid}: best non-covisible score "
+                        f"{d['best_noncovis']}, minimum covisible score {d['min_score']}, "
+                        f"{d['n_cands']} candidates")
+    for fid, kind, d in rv["sim3"]:
+        _phase("path5", f"live {kind} at frame {fid}: {d}")
+    launches_track = hamming_top2_windowed.launches
+
+    # ---- phase "loop": a planted seam at full table width ----
+    src_end = REVISIT_SRC + REVISIT_FRAMES - 1
+    spread = [s_ for s_ in rv["kf_before"] if st.kf_id_host[s_] > src_end]
+    rec.frame = -1
+    rec.keep_frames.add(-1)          # the guided verification's search
+    t1 = time.time()
+    lp = run_loop_phase(slam, rv["new_kf"], spread, recorder=rec)
+    launches = hamming_top2_windowed.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    err, n_real = _real_search_check(rec)
+    v = [x for x in lp["verify"] if x["cand"] == lp["cand"]][-1]
+    _phase("loop", f"seam planted: {lp['n_copied']} landmarks copied for keyframes "
+                   f"{spread} + {rv['new_kf']}, drift {lp['drift_m']:.3f} m / {SEAM_ROT_DEG:g} "
+                   f"degrees growing over {len(spread)} keyframes; attempts "
+                   f"{[(a['cur'], a['cands'], a['sim3']) for a in lp['attempts']]}")
+    _phase("loop", f"closed at keyframe {lp['cur']} against {lp['cand']} (frames "
+                   f"{lp['closed']['cur_fid']} / {lp['closed']['cand_fid']}): best "
+                   f"non-covisible score {lp['diag']['best_noncovis']}, "
+                   f"{lp['closed']['n_inliers']} Sim3 inliers, {v['n_guided']} guided matches "
+                   f"(>= {loopctl.MIN_GUIDED}); measured Sim3 off the planted relative pose by "
+                   f"{lp['sim3_dt_m'] * 1e3:.1f} mm (< {SEAM_SIM3_T_TOL * 1e3:.0f}) and "
+                   f"{lp['sim3_dr_deg']:.3f} degrees (< {SEAM_SIM3_R_TOL}); implied correction "
+                   f"{lp['closed']['corr_m']} m; revisit keyframes back within "
+                   f"{lp['back_m'] * 1e3:.1f} mm (< {SEAM_POSE_TOL * 1e3:.0f}); seam "
+                   f"covisibility {lp['seam_covis']:.0f} (>= 10); costs first -> last "
+                   f"{ {k: [round(x, 4) for x in c] for k, c in lp['costs'].items()} }; "
+                   f"loops closed {st.n_loops_closed}")
+    kernels = {}
+    for name, fn in loop_stage_replays(slam, lp):
+        kernels[name] = count_kernels(fn)[1]
+    ms, sy = lp["stage_ms"], lp["stage_syncs"]
+    _phase("loop", f"the closing event {lp['total_ms']:.0f} ms; ms / flagged syncs by stage: "
+                   + ", ".join(f"{k} {ms[k]:.1f} / {sy[k]}" for k in ms)
+                   + f"; kernels and copies of each stage run alone: {kernels}; phase took "
+                   f"{time.time() - t1:.1f} s")
+    _phase("path5", f"{len(fr)} frames in {wall:.1f} s; launches {launches} "
+                    f"({launches_track} before the phase \"loop\"); kernel == twin on the "
+                    f"{n_real} recorded searches (the relocalizing frame's and the guided "
+                    f"verification's); peak device memory {peak_mb:.0f} MiB")
+    if launches <= launches_track or n_real < 3:
+        raise AssertionError(f"the guided verification did not reach the kernel "
+                             f"({launches_track} -> {launches} launches, {n_real} recorded)")
+    strip = lambda d: {k: (v_.tolist() if isinstance(v_, np.ndarray) else v_)
+                       for k, v_ in d.items()
+                       if k not in ("m_planted", "frames", "events", "measured")}
+    detail = {"frames": len(fr), "launches": launches, "launches_before_loop": launches_track,
+              "revisit": strip(rv), "loop": strip(lp), "loop_stage_kernels": kernels,
+              "attempt_lost_ms": float(np.median(lost_ms)), "reloc_ms": f_reloc["ms"],
+              "window_frame_ms": float(np.median(win_ms)),
+              "vi_frame_ms": float(np.median(vi_ms)), "peak_device_MiB": peak_mb,
+              "seconds": time.time() - t0, "timers": slam.timers.summary()}
     return detail, launches, err
 
 
@@ -1229,19 +1741,25 @@ def main():
     del res2["m"], rec2
 
     # ---- phase 5: path 3, bootstrap from raw frames to VI tracking (5 s init) ----
-    detail3, launches_boot, err = bootstrap_phase("path3", seq_boot, p, cam, dev)
+    detail3, launches_boot, err, res3 = bootstrap_phase("path3", seq_boot, p, cam, dev)
     max_err = max(max_err, err)
+    del res3
 
     # ---- phase 6: path 4, the system at the published configuration (15 s init) ----
-    detail4, launches_sys, err = bootstrap_phase("path4", seq_boot, EUROC_SYSTEM, cam, dev,
-                                                 refine=True)
+    detail4, launches_sys, err, res4 = bootstrap_phase("path4", seq_boot, EUROC_SYSTEM, cam,
+                                                       dev, refine=True)
+    max_err = max(max_err, err)
+
+    # ---- phase 7: path 5, kidnap / relocalization / loop closing on path 4's system ----
+    detail5, launches_rev, err = revisit_phase(res4, seq_boot, EUROC_SYSTEM)
     max_err = max(max_err, err)
 
     bound_ms, bound_by, bound_detail = bounds[15.0]
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches_loc + launches_map + launches_boot + launches_sys,
+        "launches": (launches_loc + launches_map + launches_boot + launches_sys
+                     + launches_rev),
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
@@ -1263,9 +1781,10 @@ def main():
                         "event_ms_median": float(np.median(ev_ms)),
                         "frame_ms_median": float(np.median(res2["frame_ms"])),
                         "peak_device_MiB": peak_mb},
-              "path3": detail3, "path4": detail4,
+              "path3": detail3, "path4": detail4, "path5": detail5,
               "seconds": time.time() - t_start}
-    print(json.dumps(detail), flush=True)
+    print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
+          flush=True)
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}),

@@ -8,18 +8,21 @@ changes of dtype: packed descriptor words (uint32 on the JAX side, fields in
 PACKED_FIELDS) become int32 tensors holding the same bits, because
 torch.uint32 has few operators, on CUDA least of all; `to_numpy` turns them
 back into uint32. And the index columns of the solver tables (INDEX_FIELDS:
-VisualObs.cam / pt, IMUEdges.i / j, PriorFactor.cam) become int64, what
-torch gathers with.
+VisualObs.cam / pt, IMUEdges.i / j, PriorFactor.cam, Sim3Graph.ei / ej) become
+int64, what torch gathers with.
 
 Any NamedTuple of the port converts: MapState, Features, NavState,
 PreintState, Camera, Extrinsics, PriorFactor, and the bootstrap's
-TwoViewResult, VIInitResult, VisualObs and IMUEdges (nested PreintState).
+TwoViewResult, VIInitResult, VisualObs, IMUEdges (nested PreintState) and the
+pose graph's Sim3Graph.
 
 The host bookkeeping of a SlamSystem goes across as a plain dict
 (`host_state_to_dict` / `host_state_from_dict`): the fields of MappingState
 under the JAX class's attribute names, raw IMU rows as numpy, and the
 TrajStore's rows and meta. A parity test sets the dict's entries on a JAX
-SlamSystem and so hands one state to both systems.
+SlamSystem and so hands one state to both systems. The loop detector's state
+goes the same way (`detector_to_dict` / `detector_from_dict`: the histogram
+table, the slot -> id mirror, the consistency groups, vocabulary and idf).
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import torch
 from mc_slam_tpu_torch.device import resolve
 
 PACKED_FIELDS = frozenset({"desc", "kf_desc", "mp_desc"})
-INDEX_FIELDS = frozenset({"cam", "pt", "i", "j"})
+INDEX_FIELDS = frozenset({"cam", "pt", "i", "j", "ei", "ej"})
 
 
 def _is_namedtuple_class(t):
@@ -101,7 +104,8 @@ HOST_FIELDS = {
     "last_kf_frame": "last_kf_frame", "n_kf": "n_kf", "first_kf_time": "first_kf_time",
     "vi_inited": "vi_inited", "kf_time_host": "kf_time_host", "kf_id_host": "kf_id_host",
     "broken_chain_slots": "broken_chain_slots", "loop_edges": "loop_edges",
-    "chain_break_pending": "_chain_break_pending", "ref_tracked": "_ref_tracked_cache"}
+    "chain_break_pending": "_chain_break_pending", "ref_tracked": "_ref_tracked_cache",
+    "n_loops_closed": "n_loops_closed", "last_loop_nkf": "_last_loop_nkf"}
 
 
 def host_state_to_dict(st, traj=None):
@@ -127,7 +131,8 @@ def host_state_from_dict(d, device=None):
     from mc_slam_tpu_torch.pipeline.mapping_ctl import MappingState
     from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
     device = resolve(device)
-    st = MappingState(**{f: d[jax_name] for f, jax_name in HOST_FIELDS.items()})
+    st = MappingState(**{f: d[jax_name] for f, jax_name in HOST_FIELDS.items()
+                         if jax_name in d})
     st.kf_slots, st.free_slots = list(st.kf_slots), list(st.free_slots)
     st.broken_chain_slots = set(st.broken_chain_slots)
     st.kf_imu_raw = {int(k): _tensor(np.asarray(v, np.float32), device)
@@ -138,3 +143,32 @@ def host_state_from_dict(d, device=None):
         traj.block = [_tensor(a, device) for a in d["traj_rows"]]
         traj.meta = [tuple(x) for x in d["traj_meta"]]
     return st, traj
+
+
+def detector_to_dict(det):
+    """The state of a `LoopDetector` as numpy and Python values, under the
+    JAX class's attribute names: hists (K, W), hist_ids, consistent_groups,
+    min_consistency, vocab (W, 256) int8, idf (W,) or None."""
+    import copy
+    return dict(hists=det.hists.detach().cpu().numpy(), hist_ids=dict(det.hist_ids),
+                consistent_groups=copy.deepcopy(det.consistent_groups),
+                min_consistency=det.min_consistency,
+                vocab=det.vocab.detach().cpu().numpy(),
+                idf=None if det.idf is None else det.idf.detach().cpu().numpy())
+
+
+def detector_from_dict(d, device=None):
+    """The inverse: a `LoopDetector` on `device` (from a dict made here, or
+    read off a JAX detector by the caller with `np.asarray`)."""
+    from mc_slam_tpu_torch.pipeline.loopclosing import LoopDetector
+    device = resolve(device)
+    hists = np.asarray(d["hists"], np.float32)
+    det = LoopDetector(_tensor(np.asarray(d["vocab"], np.int8), device), hists.shape[0],
+                       min_consistency=int(d.get("min_consistency", 3)),
+                       idf=None if d.get("idf") is None
+                       else _tensor(np.asarray(d["idf"], np.float32), device))
+    det.hists = _tensor(hists, device)
+    det.hist_ids = {int(k): int(v) for k, v in d["hist_ids"].items()}
+    det.consistent_groups = [(frozenset(int(x) for x in g), int(c))
+                             for g, c in d["consistent_groups"]]
+    return det

@@ -22,8 +22,9 @@ BIG = match_cuda.BIG
 def hamming_matrix(pm1_a, pm1_b):
     """(Na, 256) x (Nb, 256) +/-1 int8 -> (Na, Nb) int32 Hamming distances,
     hamming = (256 - a.b) / 2. The dot runs in float32 (TF32 off): every
-    partial sum is an integer of magnitude <= 256, so it is exact."""
-    dot = pm1_a.to(torch.float32) @ pm1_b.to(torch.float32).T
+    partial sum is an integer of magnitude <= 256, so it is exact. Either
+    side may carry leading batch dims."""
+    dot = pm1_a.to(torch.float32) @ pm1_b.to(torch.float32).transpose(-1, -2)
     return torch.div(256 - dot.to(torch.int32), 2, rounding_mode="floor")
 
 
@@ -32,43 +33,43 @@ def rotation_consistency_mask(angle_a, angle_b, match_b_for_a, matched_mask,
                               min_concentration=0.5, participate=None):
     """30-bin relative-rotation histogram filter (ORBmatcher::ComputeThreeMaxima)
     with the JAX package's coverage widening, 0.1*max cutoff, concentration
-    guard and optional per-row `participate` mask."""
-    db = angle_a - angle_b[match_b_for_a]
+    guard and optional per-row `participate` mask. angle_b, the matches and
+    the mask may carry leading batch dims (one histogram per problem)."""
+    db = angle_a - torch.gather(angle_b, -1, match_b_for_a)
     two_pi = 2.0 * math.pi
     db = torch.remainder(db, two_pi)
     bins = torch.clamp((db * (HISTO_BINS / two_pi)).to(torch.int64), 0, HISTO_BINS - 1)
     in_hist = matched_mask if participate is None else (matched_mask & participate)
-    hist = torch.zeros(HISTO_BINS, dtype=torch.int32, device=db.device).index_add(
-        0, bins, in_hist.to(torch.int32))
-    n_total = torch.clamp(torch.sum(hist), min=1)
-    order = torch.argsort(-hist, stable=True)   # bins by population, desc
-    hsort = hist[order]
-    csum = torch.cumsum(hsort, 0)
-    rank_kept = torch.cat([torch.zeros(1, dtype=csum.dtype, device=db.device),
-                           csum[:-1]]) < coverage * n_total
+    hist = torch.zeros(bins.shape[:-1] + (HISTO_BINS,), dtype=torch.int32,
+                       device=db.device).scatter_add(-1, bins, in_hist.to(torch.int32))
+    n_total = torch.clamp(torch.sum(hist, dim=-1, keepdim=True), min=1)
+    order = torch.argsort(-hist, dim=-1, stable=True)   # bins by population, desc
+    hsort = torch.gather(hist, -1, order)
+    csum = torch.cumsum(hsort, -1)
+    rank_kept = torch.cat([torch.zeros_like(csum[..., :1]), csum[..., :-1]],
+                          dim=-1) < coverage * n_total
     rank_kept = rank_kept | (torch.arange(HISTO_BINS, device=db.device) < keep_bins)
     rank_kept = rank_kept & (hsort.to(torch.float32)
-                             >= 0.1 * hsort[0].to(torch.float32))
-    keep_bin = torch.zeros(HISTO_BINS, dtype=torch.bool, device=db.device)
-    keep_bin = keep_bin.scatter(0, order, rank_kept & (hsort > 0))
-    concentrated = (csum[keep_bins - 1].to(torch.float32)
+                             >= 0.1 * hsort[..., :1].to(torch.float32))
+    keep_bin = torch.zeros_like(rank_kept).scatter(-1, order, rank_kept & (hsort > 0))
+    concentrated = (csum[..., keep_bins - 1:keep_bins].to(torch.float32)
                     >= min_concentration * n_total.to(torch.float32))
-    passed = keep_bin[bins] | ~concentrated
+    passed = torch.gather(keep_bin, -1, bins) | ~concentrated
     if participate is not None:
         passed = passed | ~participate
     return matched_mask & passed
 
 
 def match_nn(dist, mask, max_dist=TH_LOW, ratio=None, ratio_mask=None):
-    """Nearest-neighbour match from a masked distance matrix.
-    Returns (idx_b (Na,) int64, best_dist (Na,), ok (Na,) bool)."""
+    """Nearest-neighbour match from a masked distance matrix (..., Na, Nb).
+    Returns (idx_b (..., Na) int64, best_dist (..., Na), ok (..., Na) bool)."""
     d = torch.where(mask, dist, BIG)
-    best, idx = torch.min(d, dim=1)          # first minimum, as jnp.argmin
+    best, idx = torch.min(d, dim=-1)         # first minimum, as jnp.argmin
     ok = best <= max_dist
     if ratio is not None:
         dr = torch.where(ratio_mask, dist, BIG) if ratio_mask is not None else d
-        d2 = dr.scatter(1, idx[:, None], BIG)      # the best column out of the running
-        second = torch.amin(d2, dim=1)
+        d2 = dr.scatter(-1, idx[..., None], BIG)   # the best column out of the running
+        second = torch.amin(d2, dim=-1)
         ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
     return idx, best, ok
 
@@ -147,12 +148,15 @@ def search_for_initialization(f0_uv, f0_pm1, f0_valid, f1_uv, f1_pm1, f1_valid,
 def mutual_match(pm1_a, valid_a, pm1_b, valid_b, max_dist=TH_LOW, ratio=0.75,
                  angle_a=None, angle_b=None):
     """Unwindowed mutual nearest-neighbour matching (where the reference uses
-    SearchByBoW), with the optional rotation-histogram prune."""
+    SearchByBoW), with the optional rotation-histogram prune. The b side
+    (pm1_b, valid_b, angle_b) may carry one leading batch dim C: the a side
+    is then matched against C tables at once and every result is (C, Na)."""
+    Na = pm1_a.shape[-2]
     dist = hamming_matrix(pm1_a, pm1_b)
-    gate = valid_a[:, None] & valid_b[None, :]
+    gate = valid_a[..., :, None] & valid_b[..., None, :]
     idx_ab, best_ab, ok_ab = match_nn(dist, gate, max_dist=max_dist, ratio=ratio)
-    _, idx_ba = torch.min(torch.where(gate, dist, BIG).T, dim=1)
-    mutual = idx_ba[idx_ab] == torch.arange(pm1_a.shape[0], device=idx_ab.device)
+    _, idx_ba = torch.min(torch.where(gate, dist, BIG), dim=-2)
+    mutual = torch.gather(idx_ba, -1, idx_ab) == torch.arange(Na, device=idx_ab.device)
     ok = ok_ab & mutual
     if angle_a is not None and angle_b is not None:
         ok = rotation_consistency_mask(angle_a, angle_b, idx_ab, ok)

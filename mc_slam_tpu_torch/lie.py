@@ -1,5 +1,5 @@
-"""Batched Lie-group math on SO(3) (port of the parts of mc_slam_tpu/lie.py
-that tracking reaches).
+"""Batched Lie-group math on SO(3) and Sim(3) (port of mc_slam_tpu/lie.py:
+what tracking reaches of SO(3), and the Sim(3) group of loop closing).
 
 Rotations are (..., 3, 3) matrices. Every function broadcasts over leading
 batch dims and follows the dtype and device of its input. The small-angle
@@ -123,3 +123,88 @@ def so3_normalize_fast(R):
     r2 = torch.linalg.cross(r0, r1, dim=-1)
     return torch.stack([r0, r1, r2], dim=-2)
 
+
+
+# ---------------------------------------------------------------------------
+# Sim(3): (s: (...,), R: (..., 3, 3), t: (..., 3)); x_out = s * R @ x + t
+# (g2o sim3.h semantics, used by loop closing).
+# ---------------------------------------------------------------------------
+
+def _mv(M, v):
+    return (M @ v[..., None])[..., 0]
+
+
+def sim3_exp(xi):
+    """Exp of a sim(3) element xi = [rho(3), phi(3), sigma(1)]: (..., 7) ->
+    (s, R, t), with t = W @ rho and W = a*I + b*hat(phi) + c*hat(phi)^2 the
+    closed-form Sim(3) "V" matrix (g2o sim3.h); Taylor forms where sigma
+    and / or theta go to 0, selected by `torch.where` on safe inputs."""
+    rho, phi, sigma = xi[..., :3], xi[..., 3:6], xi[..., 6]
+    s = torch.exp(sigma)
+    R = so3_exp(phi)
+    ts = _theta_sq(phi)
+    small_t = ts < _EPS ** 2
+    theta = torch.sqrt(torch.where(small_t, torch.ones_like(ts), ts))
+    small_s = torch.abs(sigma) < _EPS
+    sig = torch.where(small_s, torch.ones_like(sigma), sigma)
+
+    st, ct = torch.sin(theta), torch.cos(theta)
+    a = torch.where(small_s, 1.0 + sigma / 2.0 + sigma * sigma / 6.0, (s - 1.0) / sig)
+    den = torch.where(small_t & small_s, torch.ones_like(ts), sig * sig + ts)
+    b_full = (s * (sig * st - theta * ct) + theta) / (theta * den)
+    c_full = (a - (s * (sig * ct + theta * st) - sig) / den) / torch.where(
+        small_t, torch.ones_like(ts), ts)
+    # sigma -> 0 (theta general): the SE(3) left-Jacobian coefficients
+    _, B0, C0 = _taylor_coeffs(ts)
+    # theta -> 0 (sigma general)
+    b_t0 = torch.where(small_s, 0.5 + sigma / 6.0, (s * (sig - 1.0) + 1.0) / (sig * sig))
+    c_t0 = torch.where(small_s, 1.0 / 6.0 + sigma / 24.0,
+                       (s * (0.5 * sig * sig - sig + 1.0) - 1.0) / (sig ** 3))
+    b = torch.where(small_t, b_t0, torch.where(small_s, B0, b_full))
+    c = torch.where(small_t, c_t0, torch.where(small_s, C0, c_full))
+
+    W = hat(phi)
+    Wm = a[..., None, None] * _eye3(xi) + b[..., None, None] * W \
+        + c[..., None, None] * (W @ W)
+    return s, R, _mv(Wm, rho)
+
+
+def sim3_inv(s, R, t):
+    Rt = R.transpose(-1, -2)
+    s_inv = 1.0 / s
+    return s_inv, Rt, -s_inv[..., None] * _mv(Rt, t)
+
+
+def sim3_mul(sa, Ra, ta, sb, Rb, tb):
+    return sa * sb, Ra @ Rb, sa[..., None] * _mv(Ra, tb) + ta
+
+
+def sim3_apply(s, R, t, x):
+    return s[..., None] * _mv(R, x) + t
+
+
+def sim3_adjoint(s, R, t):
+    """Adjoint of Sim(3) in [rho, phi, sigma] coordinates:
+    Ad = [[s R, hat(t) R, -t], [0, R, 0], [0, 0, 1]]."""
+    A = torch.zeros(s.shape + (7, 7), dtype=R.dtype, device=R.device)
+    A[..., :3, :3] = s[..., None, None] * R
+    A[..., :3, 3:6] = hat(t) @ R
+    A[..., :3, 6] = -t
+    A[..., 3:6, 3:6] = R
+    A[..., 6, 6] = 1.0
+    return A
+
+
+def sim3_log(s, R, t):
+    """Log map Sim(3) -> (..., 7) [rho, phi, sigma]: W is rebuilt from
+    (sigma, phi) column by column through `sim3_exp` and W rho = t is solved
+    (a singular W gives NaN, no exception)."""
+    sigma = torch.log(s)
+    phi = so3_log(R)
+    cols = []
+    for e in _eye3(phi):
+        cols.append(sim3_exp(torch.cat([e.expand_as(phi), phi, sigma[..., None]], dim=-1))[2])
+    Wm = torch.stack(cols, dim=-1)              # columns are W @ e_k
+    rho, info = torch.linalg.solve_ex(Wm, t[..., None])
+    rho = torch.where((info == 0)[..., None, None], rho, float("nan"))[..., 0]
+    return torch.cat([rho, phi, sigma[..., None]], dim=-1)

@@ -14,9 +14,11 @@ event order of `_local_mapping` followed by `_harvest_event`
 allocation with recycling and eviction (`alloc_kf_slot`), keyframe removal
 (`remove_keyframe`, `splice_imu_chain`), keyframe culling (`cull_keyframes`)
 and the landmark-chunked whole-map BA (`global_ba_chunked`, taken by a
-`force_all` window of more than 40 keyframes). Not covered: loop detection
-(`kf_event_post` takes zero histograms; `MappingState.loop_edges` stays
-empty) and the mesh-sharded form of the chunked BA.
+`force_all` window of more than 40 keyframes). Loop detection rides on the
+event: `insert_keyframe` registers the keyframe's BoW histogram with the
+detector it is given, `keyframe_event` scores it against every keyframe's
+(`EventResult.detect`), and the caller (tracking_ctl) hands that to
+`loopctl.try_close_loop`. Not covered: the mesh-sharded form of the chunked BA.
 
 Padded window rows are never written back (the JAX package pads with copies
 of the last slot and scatters every row, so that slot is written several
@@ -71,6 +73,8 @@ class MappingState:
     kf_time_host: dict = dataclasses.field(default_factory=dict)  # slot -> time
     loop_edges: list = dataclasses.field(default_factory=list)  # [(slot_a, slot_b)]
     chain_break_pending: bool = False      # the next keyframe starts a new IMU chain
+    n_loops_closed: int = 0
+    last_loop_nkf: int = -100              # n_kf at the last closure (the 10-keyframe cooldown)
 
 
 class EventResult(NamedTuple):
@@ -80,6 +84,7 @@ class EventResult(NamedTuple):
     ba: BAStats | None
     stats: tuple               # kf_event_post's (covis_row, red_ratio, n_pts, n_active, n_well)
     removed: tuple = ()        # keyframe slots culled at the event's end
+    detect: tuple | None = None  # (scores (K,), W (K, K)) for loop detection, with hists
 
 
 def imu_edge_lists(all_slots, n_window, broken_chain_slots=(), prev_idx=None,
@@ -548,7 +553,8 @@ def cull_keyframes(m: MapState, st: MappingState, cfg: SlamConfig, noise: IMUNoi
 
 def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState, feats,
                     uv, t_kf, fid, imu_rows, noise: IMUNoise, feat_mp=None,
-                    cam_frame=False, ext: factors.Extrinsics | None = None, traj=None):
+                    cam_frame=False, ext: factors.Extrinsics | None = None, traj=None,
+                    detector=None):
     """Write a frame as a keyframe into the slot `alloc_kf_slot` gives
     (SlamSystem._insert_kf_raw): the preintegration over every IMU row since
     the last keyframe, the delta bias folded into the base bias
@@ -560,7 +566,8 @@ def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState
     biases). cam_frame: ns.P / ns.R are a camera pose (world-from-camera),
     converted to the body pose through `ext`. imu_rows: (T, 7) tensor of
     [gyro, acc, dt] rows, or None (the first keyframe). traj: the TrajStore,
-    for an eviction at capacity.
+    for an eviction at capacity. detector: the `LoopDetector` that takes the
+    keyframe's BoW histogram (None: no place recognition).
     Returns (m, slot); `st` is updated in place."""
     dev = m.mp_pos.device
     P, R = (cam_to_body(ext, ns.P, ns.R) if cam_frame else (ns.P, ns.R))
@@ -589,6 +596,8 @@ def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState
     st.last_kf_frame = int(fid)
     if st.first_kf_time is None:
         st.first_kf_time = float(t_kf)
+    if detector is not None:
+        detector.add_keyframe(slot, feats.desc_pm1, feats.valid.to(torch.float32), kf_id=fid)
     return m, slot
 
 
@@ -607,7 +616,8 @@ def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int
     host (before the first event has left one); nothing else before the
     stats copy reads a device value.
 
-    hists: (K, V) loop-detection histograms, zeros when loop closing is off.
+    hists: (K, W) BoW histograms of the loop detector; None without place
+    recognition (then `EventResult.detect` is None).
     timer: optional callable(stage_name) invoked before "pre", "ba", "post",
     "cull" and "end" (a CUDA-event recorder). traj: the TrajStore whose rows
     follow a culled keyframe to its heir. max_new: new points per neighbour
@@ -616,7 +626,8 @@ def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int
     slot = st.last_kf_slot
     dev = m.mp_pos.device
     mark = timer if timer is not None else (lambda name: None)
-    if hists is None:
+    with_hists = hists is not None
+    if not with_hists:
         hists = torch.zeros((m.K, 1), dtype=torch.float32, device=dev)
     n_before = torch.sum(m.mp_active)
     mark("pre")
@@ -627,7 +638,7 @@ def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int
     mark("ba")
     m, ba_stats = local_ba(m, st, cfg, cam, ext, gw, noise, ba_Pw=ba_Pw)
     mark("post")
-    m, stats, _, _ = mapping.kf_event_post(
+    m, stats, scores, W = mapping.kf_event_post(
         m, slot, wslots, wvalid, ext, hists, cfg.n_levels,
         min_obs=(2 if len(st.kf_slots) <= 2 else 3), refresh=cfg.refresh_stats)
     mark("cull")
@@ -640,7 +651,8 @@ def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int
                                 ratio_all=host[1 + K:1 + 2 * K], npts_all=host[1 + 2 * K:])
     mark("end")
     return m, EventResult(n_created=n_new, n_fused=n_fused, n_culled=n_culled,
-                          ba=ba_stats, stats=stats, removed=tuple(removed))
+                          ba=ba_stats, stats=stats, removed=tuple(removed),
+                          detect=(scores, W) if with_hists else None)
 
 
 def note_event_stats(st: MappingState, covis_row, n_well):

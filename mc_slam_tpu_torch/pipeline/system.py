@@ -10,11 +10,18 @@ the `MappingState` and `TrackState` that the step functions of mapping_ctl /
 tracking_ctl / viinit_ctl work on and exposes their fields under the JAX
 class's attribute names; it keeps no second copy of them.
 
+Place recognition is on by default, as in the JAX class: the constructor
+loads the shipped 32768-word vocabulary and builds the `LoopDetector`; every
+keyframe registers its BoW histogram; a LOST system relocalizes against it
+(`tracking_ctl.relocalize`), after VI init followed by the 20-frame window
+that solves the biases again; every keyframe event past the gates ends in
+`loopctl.try_close_loop` (`enable_loop_closing`, True by default).
+
 Not ported, and loud about it: `depth=` / `img_right=` (stereo and RGB-D
-rows), relocalization and the reference-keyframe fallback (a LOST system
-stays LOST), loop closing (`enable_loop_closing` is False and cannot be set),
-the device mesh (`enable_mesh` raises), and the asynchronous frame pipeline
-(pair fusion, deferred harvest, rollback).
+rows), the device mesh (`enable_mesh` raises), the XYZ form of the VI window
+BA (`use_idp_ba=False`), and the asynchronous frame pipeline (pair fusion,
+deferred harvest of frames, events, Sim3 batches and verifications,
+rollback).
 
 Also here: seeding from metric depth (`_depth_to_world`, `_alloc_points`) and
 the monocular two-view bootstrap `try_initialize`
@@ -30,11 +37,12 @@ import torch
 
 from mc_slam_tpu_torch.camera import Camera, undistort_points
 from mc_slam_tpu_torch.device import resolve
-from mc_slam_tpu_torch.frontend import extractor, matching
+from mc_slam_tpu_torch.frontend import bow, extractor, matching
 from mc_slam_tpu_torch.geometry import init2view
 from mc_slam_tpu_torch.imu.navstate import navstate_identity
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise, euroc_noise
-from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl, tracking, tracking_ctl
+from mc_slam_tpu_torch.pipeline import (loopclosing, loopctl, mapping, mapping_ctl, tracking,
+                                        tracking_ctl)
 from mc_slam_tpu_torch.pipeline.pipebase import LOST, NO_IMAGES_YET, NOT_INITIALIZED, OK
 from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
@@ -161,7 +169,8 @@ class InitAttempt(NamedTuple):
 def try_initialize(m: MapState, st: mapping_ctl.MappingState,
                    cfg: SlamConfig, cam: Camera, ext: Extrinsics,
                    noise, ref, feats, uv, t, frame_id: int, imu_rows,
-                   generator: torch.Generator | None = None, idx_samples=None):
+                   generator: torch.Generator | None = None, idx_samples=None,
+                   detector=None):
     """Monocular initialization (Tracking::MonocularInitialization): match
     the reference frame against this one, solve the two-view geometry from
     200 8-point samples, rescale so that the median depth is 1, insert
@@ -172,7 +181,8 @@ def try_initialize(m: MapState, st: mapping_ctl.MappingState,
     rows between the reference frame and this one, or None (they become
     keyframe 1's preintegration; the JAX package hands them to keyframe 0 and
     leaves keyframe 1 with none). idx_samples: (200, 8) sample indices; drawn from
-    `generator` when not given. The host reads, one copy each:
+    `generator` when not given. detector: the `LoopDetector` that takes both
+    keyframes' BoW histograms. The host reads, one copy each:
     the match count, then ok / t / good / Xw of the two-view result.
     Returns (m, InitAttempt)."""
     f0, uv0, t0 = ref
@@ -214,10 +224,10 @@ def try_initialize(m: MapState, st: mapping_ctl.MappingState,
     t32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     ns0 = navstate_identity(device=dev)
     m, slot0 = mapping_ctl.insert_keyframe(m, st, cfg, ns0, f0, uv0, t0, frame_id, None,
-                                           noise, cam_frame=True, ext=ext)
+                                           noise, cam_frame=True, ext=ext, detector=detector)
     m, slot1 = mapping_ctl.insert_keyframe(m, st, cfg, ns0._replace(P=t32(C1), R=t32(R1)),
                                            feats, uv, t, frame_id, imu_rows, noise,
-                                           cam_frame=True, ext=ext)
+                                           cam_frame=True, ext=ext, detector=detector)
     # map points and associations, in feature order, into slots 0 .. n_good-1
     good_idx = np.nonzero(good)[0]
     Xg = Xw[good_idx].astype(np.float32)
@@ -267,7 +277,8 @@ class SlamSystem:
     `global_refine`, `reset`, `set_localization_mode`, and the attributes
     `state`, `m`, `vi_inited`, `gw`, `kf_slots`, `n_kf`, `frame_id`,
     `n_lost_frames`, `events`, `timers`, `traj`, `last_ns`, `last_pose`,
-    `viinit_log`. `st` (mapping_ctl.MappingState) and `ts`
+    `viinit_log`, `loop`, `enable_loop_closing`, `n_loops_closed`,
+    `loop_edges`, `reloc_buf`, `reloc_window`. `st` (mapping_ctl.MappingState) and `ts`
     (tracking_ctl.TrackState, None until the map is initialized) hold the
     state itself."""
 
@@ -294,13 +305,24 @@ class SlamSystem:
         self.last_time = 0.0
         self.n_lost_frames = 0
         # diagnostic log: (frame_id, kind, detail) for "init", "vi_init",
-        # "kf_culled", "lost"
+        # "kf_culled", "lost", "reloc", "lc_diag", "sim3_dispatch",
+        # "sim3_result", "verify_result", "loop"
         self.events: list[tuple] = []
         self.localization_only = False
         self._ref = None                # (feats, uv, t) of the two-view reference frame
         self._init_rows: list = []      # IMU rows since the reference frame
         self.timers = StageTimer(self.device)
         self.viinit_log = None          # set to utils.metrics.VIInitLog(dir) to enable
+        # place recognition (loop closing and relocalization): the shipped
+        # trained vocabulary when present, else a random one
+        vgen = torch.Generator(device=self.device)
+        vgen.manual_seed(self.cfg.seed + 1)
+        self._loopctx = loopctl.LoopContext(
+            detector=loopclosing.LoopDetector(
+                bow.load_default_vocab(vgen, device=self.device), self.cfg.max_kf,
+                idf=bow.load_default_idf(device=self.device)),
+            generator=self._gen, events=self.events, timers=self.timers)
+        self.reloc_window = 20          # frames of the bias window after a relocalization
         # constants of the frame programs, staged once
         self._consts = tracking_ctl.frame_constants(self.noise, self.device)
         self._gw0 = torch.tensor([0.0, 0.0, -self.cfg.g_mag], device=self.device)
@@ -332,20 +354,57 @@ class SlamSystem:
             return (torch.zeros(3, device=self.device), torch.eye(3, device=self.device))
         return (self.ts.P, self.ts.R)
 
+    @last_pose.setter
+    def last_pose(self, pose):
+        self.ts.P, self.ts.R = (torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                                for a in pose)
+
+    @property
+    def velocity(self):
+        """The constant-velocity model: the last step's relative motion (dP, dR)."""
+        return (self.ts.dP, self.ts.dR)
+
+    @velocity.setter
+    def velocity(self, vel):
+        self.ts.dP, self.ts.dR = (torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                                  for a in vel)
+
     @property
     def last_ns(self):
         if self.ts is None or self.ts.ns is None:
             return navstate_identity(device=self.device)
         return self.ts.ns
 
+    @last_ns.setter
+    def last_ns(self, ns):
+        self.ts.ns = ns
+
+    @property
+    def loop(self):
+        """The `LoopDetector` (vocabulary, idf, one histogram per keyframe
+        slot); settable, for a vocabulary trained on the scene at hand."""
+        return self._loopctx.detector
+
+    @loop.setter
+    def loop(self, detector):
+        self._loopctx.detector = detector
+
+    n_loops_closed = property(lambda self: self.st.n_loops_closed)
+    loop_edges = property(lambda self: self.st.loop_edges)
+
+    @property
+    def reloc_buf(self):
+        """The frames buffered since a relocalization after VI init; None
+        outside that window."""
+        return self.ts.reloc_buf if self.ts is not None else None
+
     @property
     def enable_loop_closing(self):
-        return False
+        return self._loopctx.enabled
 
     @enable_loop_closing.setter
     def enable_loop_closing(self, on):
-        if on:
-            raise NotImplementedError("loop closing is not ported")
+        self._loopctx.enabled = bool(on)
 
     def enable_mesh(self, mesh=None, mesh_e=None):
         raise NotImplementedError("the mesh-sharded whole-map optimizations are not ported")
@@ -400,7 +459,9 @@ class SlamSystem:
         tensor staged by `upload`; t: time in seconds; imu: (T, 7) rows
         [gyro, acc, dt] since the previous frame. Returns whether the frame
         was tracked (False while the map is not initialized, and when LOST).
-        depth / img_right (RGB-D, stereo) are not ported."""
+        A LOST system tries to relocalize on every frame, and so does the
+        frame on which tracking is lost. depth / img_right (RGB-D, stereo)
+        are not ported."""
         if depth is not None or img_right is not None:
             raise NotImplementedError("RGB-D and stereo input (depth=, img_right=) is not "
                                       "ported")
@@ -419,9 +480,21 @@ class SlamSystem:
             else:
                 with self.timers.stage("initialize"):
                     ok = self._try_initialize(feats, uv, t, rows)
-        elif self.state == LOST:
-            # relocalization is not ported: a LOST system stays LOST
-            self._note_lost(dict(mode="lost", n_in=0))
+        elif self.state == LOST or self.ts.reloc_buf is not None:
+            # once LOST, straight to relocalization (running the trackers from
+            # a garbage pose can accept on accidental inliers); while the bias
+            # window is open, visual tracking against the map
+            with self.timers.stage("extract"):
+                feats = extractor.extract(img, n_features=cfg.n_feat, n_levels=cfg.n_levels)
+                uv = undistort_points(self.cam, feats.xy)
+            self._keep_rows(rows)
+            if self.state == LOST:
+                ok = self._relocalize(feats, uv, t)
+                if not ok:
+                    self._note_lost(dict(mode="lost", n_in=0, reloc=self.ts.reloc_diag))
+            else:
+                with self.timers.stage("track"):
+                    ok = self._track_reloc_window(feats, uv, t)
         else:
             with self.timers.stage("track"):
                 ok = self._track_frame(img, t, rows)
@@ -442,7 +515,7 @@ class SlamSystem:
         imu_rows = torch.cat(self._init_rows) if self._init_rows else None
         self.m, att = try_initialize(self.m, self.st, self.cfg, self.cam, self.ext,
                                      self.noise, self._ref, feats, uv, t, self.frame_id,
-                                     imu_rows, generator=self._gen)
+                                     imu_rows, generator=self._gen, detector=self.loop)
         self.last_init = att
         if att.reset_ref:
             self._ref, self._init_rows = (feats, uv, t), []
@@ -464,7 +537,7 @@ class SlamSystem:
         cfg, st = self.cfg, self.st
         ev_mark = self._marks("lm_", self.event_probe)
         kw = dict(event_timer=ev_mark, allow_kf=not self.localization_only,
-                  event_kw=self.event_kw)
+                  event_kw=self.event_kw, loop=self._loopctx)
         if st.vi_inited:
             self.m, out = tracking_ctl.track_vi(
                 self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
@@ -473,18 +546,77 @@ class SlamSystem:
             self.m, out = tracking_ctl.track_visual(
                 self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
                 self.noise, vi_mark=self._marks("vi_", self.vi_probe),
-                vi_log=self.viinit_log, **kw)
+                vi_log=self.viinit_log, generator=self._gen, **kw)
         self.last_outcome = out
         if out.state == LOST:
             self.state = LOST
+            # the frame that was lost tries to relocalize at once
+            if self._relocalize(out.feats, out.uv, t):
+                return True
             self._note_lost(dict(mode="vi" if st.vi_inited else "vis", n_in=out.n_inliers))
             return False
+        self._note_event(out)
+        return True
+
+    def _note_event(self, out):
         if out.event is not None and out.event.removed:
             self.events.append((self.frame_id, "kf_culled",
                                 dict(slots=list(out.event.removed))))
         if out.vi is not None and out.vi.accepted:
             self.events.append((self.frame_id, "vi_init",
                                 dict(n_kf=out.vi.n_kf, scale=out.vi.scale, cond=out.vi.cond)))
+
+    def _keep_rows(self, rows):
+        """IMU rows of a frame that the trackers do not consume themselves."""
+        if rows is not None and rows.shape[0]:
+            self.ts.imu_since_kf.append(rows)
+            self.ts.imu_since_frame.append(rows)
+
+    def _after_sync_frame(self, feats, uv, t, feat_mp, n_in, mode, used_fb=False):
+        """The tail of a frame tracked off the steady state (relocalized, or
+        inside the bias window): its trajectory row and the keyframe decision
+        (-> event -> loop closing); never a keyframe while the window is open."""
+        st, ts = self.st, self.ts
+        anchor = st.last_kf_slot
+        ts.traj.append(tracking._traj_row(self.m, ts.P, ts.R, anchor), t, anchor,
+                       st.kf_id_host.get(anchor, -1))
+        self.m, slot, event, closed = tracking_ctl._keyframe_tail(
+            self.m, st, self.cfg, ts, feats, uv, t, self.frame_id, feat_mp, n_in, self.cam,
+            self.ext, self.noise, self._marks("lm_", self.event_probe),
+            not self.localization_only, self.event_kw, self._loopctx)
+        self.m, vi = tracking_ctl.vi_init_tail(
+            self.m, st, self.cfg, ts, t, self.cam, self.ext, self.noise,
+            self._marks("vi_", self.vi_probe), self.viinit_log)
+        self.last_outcome = tracking_ctl.FrameOutcome(OK, n_in, used_fb, slot, event, vi,
+                                                      loop=closed, mode=mode)
+        self._note_event(self.last_outcome)
+
+    def _relocalize(self, feats, uv, t):
+        """One relocalization attempt on this frame's features."""
+        with self.timers.stage("relocalize"):
+            hit = tracking_ctl.relocalize(self.m, self.st, self.cfg, self.ts, self.loop, feats,
+                                          uv, t, self.cam, self.ext, generator=self._gen)
+        if hit is None:
+            return False
+        self.state = OK
+        self.events.append((self.frame_id, "reloc", dict(kf=hit["kf"], n_in=hit["n_in"])))
+        self._after_sync_frame(feats, uv, t, hit["feat_mp"], hit["n_in"], "reloc")
+        return True
+
+    def _track_reloc_window(self, feats, uv, t):
+        """One frame of the bias window after a relocalization."""
+        ok, n_in, used_fb = tracking_ctl.track_frame_reloc_window(
+            self.m, self.st, self.cfg, self.ts, feats, uv, t, self.cam, self.ext, self.noise,
+            reloc_window=self.reloc_window)
+        if not ok:
+            self.state = LOST
+            self.last_outcome = tracking_ctl.FrameOutcome(LOST, n_in, used_fb, None, None, None,
+                                                          mode="reloc_window")
+            if self._relocalize(feats, uv, t):
+                return True
+            self._note_lost(dict(mode="reloc_window", n_in=n_in))
+            return False
+        self._after_sync_frame(feats, uv, t, self.ts.prev_feat_mp, n_in, "reloc_window", used_fb)
         return True
 
     def _marks(self, prefix, probe):

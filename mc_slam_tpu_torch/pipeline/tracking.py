@@ -25,6 +25,7 @@ import torch
 from mc_slam_tpu_torch.camera import Camera, undistort_points
 from mc_slam_tpu_torch.frontend import extractor, matching
 from mc_slam_tpu_torch.frontend.extractor import Features
+from mc_slam_tpu_torch.geometry import pnp
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import predict_navstate, preintegrate
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, _set_drop
@@ -198,6 +199,46 @@ def track_frame_vi(m: MapState, feats: Features, uv_ideal, cam: Camera,
         info_prv, info_bias, iters=iters, compute_marg=True, rtol=rtol)
     inlier = matched & (chi2 <= ba.CHI2_MONO)
     return ns2, torch.where(inlier, feat_mp, -1), torch.sum(matched), n_in, H_marg
+
+
+# RANSAC hypotheses per relocalization candidate when the samples are drawn
+# here. The JAX package draws 256. Its 6-point DLT is near-degenerate on the
+# near-planar point sets that a room's walls give, so few clean samples reach
+# the 12-inlier bar and a relocalization can take many frames (PERF.md has the
+# counts by number of hypotheses). The hypotheses are one batch on the card,
+# so the port draws eight times as many; callers that pass `idx` choose their
+# own number.
+PNP_ITERS = 2048
+
+
+def reloc_candidates_batch(m: MapState, cand_slots, idx, desc_pm1, feat_valid,
+                           feat_angle, xn, focal,
+                           generator: torch.Generator | None = None):
+    """Relocalization candidate evaluation for C keyframes as one batched
+    pass (Tracking::Relocalization's per-candidate loop): mutual descriptor
+    matching of the frame against each candidate's landmark features, then
+    PnP RANSAC on the matched 2D-3D pairs.
+
+    cand_slots: (C,) int64; idx: (C, n, 6) int64 sample indices, or None to
+    draw PNP_ITERS of them from `generator`; xn: (F, 2) normalized ideal
+    coordinates.
+    Returns (C, 15) rows [n_match, pnp_ok, pnp_inliers, R_cw (9), t_cw (3)]:
+    ONE host read decides which candidate (if any) to refine."""
+    mp_k = m.kf_mp[cand_slots]                                   # (C, F)
+    has = (mp_k >= 0) & m.kf_feat_valid[cand_slots]
+    midx, _, okm = matching.mutual_match(
+        desc_pm1, feat_valid, m.kf_pm1[cand_slots], has, max_dist=matching.TH_LOW,
+        ratio=0.85, angle_a=feat_angle, angle_b=m.kf_angle[cand_slots])
+    Xw = m.mp_pos[torch.clamp(torch.gather(mp_k, 1, midx), 0, m.P - 1).to(torch.int64)]
+    w = okm.to(torch.float32)
+    if idx is None:
+        idx = pnp.draw_samples(generator, w, PNP_ITERS, 6)
+    res = pnp.pnp_ransac(idx, Xw, xn, w, focal, min_inliers=12)
+    C = cand_slots.shape[0]
+    return torch.cat([torch.sum(okm, dim=-1).to(torch.float32)[:, None],
+                      res.ok.to(torch.float32)[:, None],
+                      res.n_inliers.to(torch.float32)[:, None],
+                      res.R_cw.reshape(C, 9), res.t_cw], dim=1)
 
 
 def _traj_row(m: MapState, P, R, anchor_slot):

@@ -205,3 +205,19 @@ def gyr_bias(bg, dRij, J_R_bg, R_bi, R_bj):
     r = lie.so3_log(rR)
     J = -(lie.so3_jr_inv(r) @ lie.so3_exp(-r)) @ (lie.so3_jr(Jbg) @ J_R_bg)
     return r, J
+
+
+def sim3_reproj(cam: Camera, s, R, t, Pc_other, uv):
+    """Sim3 reprojection factor of OptimizeSim3 (g2o types_seven_dof_expmap):
+    the point Pc_other of the OTHER camera frame, moved by Pc = s R Pc_other + t,
+    is projected into this camera. s (...,), R (..., 3, 3), t (..., 3) broadcast
+    against Pc_other (..., N, 3). Returns r (..., N, 2), J (..., N, 2, 7) w.r.t.
+    the left-multiplicative update S <- Exp([drho, dphi, dsigma]) S, and z."""
+    Pc = s[..., None, None] * _mv(R[..., None, :, :], Pc_other) + t[..., None, :]
+    uv_hat, z = _project_ideal(cam, Pc)
+    r = uv_hat - uv
+    Jpi = project_jacobian(cam, Pc)
+    # dPc = drho + dphi x Pc + dsigma * Pc, to first order
+    J_rho = torch.eye(3, dtype=r.dtype, device=r.device).expand(Pc.shape[:-1] + (3, 3))
+    J = Jpi @ torch.cat([J_rho, -lie.hat(Pc), Pc[..., None]], dim=-1)
+    return r, J, z

@@ -248,17 +248,21 @@ def tree_leaves(x):
 
 
 def tree_select(cond, a, b):
-    """Leafwise torch.where(cond, a, b) over matching tuples/NamedTuples."""
+    """Leafwise torch.where(cond, a, b) over matching tuples/NamedTuples; a
+    cond with batch dims selects per problem (it is padded with trailing
+    singleton dims to each leaf's rank)."""
     if isinstance(a, torch.Tensor):
-        return torch.where(cond, a, b)
+        return torch.where(cond.reshape(cond.shape + (1,) * (a.dim() - cond.dim())), a, b)
     vals = [tree_select(cond, u, v) for u, v in zip(a, b)]
     return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
 
 
-def _all_finite(x):
+def _all_finite(x, batch_dims: int = 0):
+    """Whether every leaf is finite; per problem over `batch_dims` leading dims."""
     finite = None
     for leaf in tree_leaves(x):
-        f = torch.all(torch.isfinite(leaf))
+        f = torch.isfinite(leaf)
+        f = torch.all(f.reshape(f.shape[:batch_dims] + (-1,)), dim=-1)
         finite = f if finite is None else finite & f
     return finite
 
@@ -270,6 +274,8 @@ def lm_optimize(x0, linearize_solve: Callable, retract: Callable,
     is entirely finite; lambda shrinks on accept and grows on reject. With
     rtol > 0, once an accepted step improves cost by less than rtol relative
     the remaining iterations keep the state (the JAX lax.cond no-op branch).
+    `cost_fn` may return one cost per problem of a leading batch (then every
+    leaf of x carries that batch, and accept / lambda are per problem).
     Returns (x, final cost, per-iteration costs)."""
     c0 = cost_fn(x0)
     x, cost = x0, c0
@@ -279,7 +285,7 @@ def lm_optimize(x0, linearize_solve: Callable, retract: Callable,
     for _ in range(iters):
         x_new = retract(x, linearize_solve(x, lam))
         c_new = cost_fn(x_new)
-        accept = (c_new < cost) & _all_finite(x_new)
+        accept = (c_new < cost) & _all_finite(x_new, c0.dim())
         x2 = tree_select(accept, x_new, x)
         lam2 = torch.clamp(torch.where(accept, lam * lam_down, lam * lam_up),
                            lam_min, lam_max)

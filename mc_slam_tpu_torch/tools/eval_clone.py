@@ -15,8 +15,13 @@ trajectory against ground truth with `eval.ate` (similarity alignment, whole
 run and after VI init) and writes the result, with the card's name and power
 limit, to artifacts/ate_clone_euroc_torch.json.
 
-Loop closing is not ported: `--no-loops` is the only mode and is accepted for
-symmetry with the JAX script. Where no PNG codec is installed (neither PIL
+Loop closing and relocalization are on, as in the JAX script; `--no-loops`
+turns loop closing off (relocalization stays). The result carries the JAX
+script's keys `n_lost`, `n_relocs`, `max_lost_streak` and `loops_closed`. (The
+JAX script's "loops" dataset profile, which this tool does not generate, is 2
+laps at 6 x IMU noise with weak-texture walls, as its PROFILE_GEN table says;
+the comment above that table still describes an older 3-lap, 8 x profile.)
+Where no PNG codec is installed (neither PIL
 nor imageio) the frames are rendered straight into the run and nothing is
 written. Needs a GPU unless `--device cpu` is given.
 """
@@ -167,7 +172,7 @@ def main(argv=None):
     ap.add_argument("--max-frames", type=int, default=0)
     ap.add_argument("--final-gba", action="store_true")
     ap.add_argument("--no-loops", action="store_true",
-                    help="accepted for symmetry: loop closing is not ported")
+                    help="turn loop closing off (relocalization stays on)")
     ap.add_argument("--device", default=None, help="default: the card")
     ap.add_argument("--out", default="artifacts/ate_clone_euroc_torch.json")
     # the dataset's arguments, as examples/make_euroc_clone.py
@@ -222,6 +227,7 @@ def main(argv=None):
     cfg = SlamConfig(max_kf=512, max_mp=16384, n_feat=1024, n_levels=8, local_window=20,
                      use_imu=True, vi_init_time=15.0, g_mag=9.810)
     slam = SlamSystem(euroc_camera(device=dev), cfg, Tbc=TBC, device=dev)
+    slam.enable_loop_closing = not args.no_loops
 
     times, n, i_vi = [], 0, None
 
@@ -237,6 +243,7 @@ def main(argv=None):
         if n % 100 == 0:
             print(f"frame {n}: state={slam.state} kf={len(slam.kf_slots)} "
                   f"vi={slam.vi_inited} lost={slam.n_lost_frames} "
+                  f"loops={slam.n_loops_closed} "
                   f"median={np.median(times) * 1e3:.0f} ms", file=sys.stderr)
 
     # one frame of lookahead: the NEXT frame's upload is started before the
@@ -268,9 +275,16 @@ def main(argv=None):
                   if post.sum() > 10 else {})
     culled = sum(len(e[2]["slots"]) for e in slam.events if e[1] == "kf_culled")
     ms = np.asarray(times) * 1e3
+    # the longest span from a lost frame to the next relocalization
+    lost_ev = [f for f, k, _ in slam.events if k == "lost"]
+    reloc_ev = [f for f, k, _ in slam.events if k == "reloc"]
+    streaks = [min([r for r in reloc_ev if r >= f], default=n) - f for f in lost_ev]
     result = {
         "card": card, "torch": torch.__version__, "frames": n, "tracked_rows": len(traj),
         "lost_frames": slam.n_lost_frames, "lost": slam.state == LOST,
+        "n_lost": int(slam.n_lost_frames), "n_relocs": len(reloc_ev),
+        "max_lost_streak": int(max(streaks, default=0)),
+        "loops_closed": int(slam.n_loops_closed),
         "vi_inited": bool(slam.vi_inited), "vi_init_frame": i_vi,
         "keyframes_inserted": slam.n_kf, "keyframes_active": len(slam.kf_slots),
         "keyframes_culled": culled,
@@ -284,8 +298,10 @@ def main(argv=None):
         "frame_ms_vi_median": float(np.median(ms[i_vi:])) if i_vi is not None and i_vi < n
         else None,
         "run_s": t_run, "dataset_s": t_data, "final_gba_s": gba_s,
-        "final_gba": bool(args.final_gba), "loops": False,
-        "events": [e for e in slam.events if e[1] != "kf_culled"][:50],
+        "final_gba": bool(args.final_gba), "loops": not args.no_loops,
+        "events": [e for e in slam.events if e[1] not in ("kf_culled", "lc_diag")][:50],
+        "lc_diag": [(f, d["best_noncovis"], d["n_cands"]) for f, k, d in slam.events
+                    if k == "lc_diag"],
         "stages": slam.timers.summary()}
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:

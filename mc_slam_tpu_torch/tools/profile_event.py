@@ -1,7 +1,7 @@
 """Stage tables of the keyframe events and of the bootstrap at the euroc
 profile's full width.
 
-    python3 -m mc_slam_tpu_torch.tools.profile_event [--path vi|bootstrap]
+    python3 -m mc_slam_tpu_torch.tools.profile_event [--path vi|bootstrap|revisit]
         [--events 3] [--out profile_event.json]
 
 `--path vi` (the default) runs chip_smoke.py's track-and-map path up to the
@@ -14,6 +14,14 @@ the two-view initialization, one visual frame, the last visual keyframe
 event stage by stage (its BA is the visual window BA), and the VI
 initialization stage by stage (whole-map visual BA, the init solve, the
 batched re-preintegration, whole-map VI BA, and `maybe_vi_init` whole).
+`--path revisit` runs chip_smoke.py's paths 4 and 5 (the system to VI
+tracking, three blank frames, the earlier frames again, the planted seam and
+its closure), keeping the states handed to the relocalization attempts and to
+the bias window, then runs alone: a failed relocalization attempt, the
+successful one whole and stage by stage (BoW histogram and scores, the batched
+candidate evaluation, the refinement against the map), the 20-frame bias
+solve, and the stages of the loop event (detection, the Sim3 batch, the guided
+verification, the pose graph, both fusion rounds, the whole-map BA).
 Each stage runs under torch.profiler and with
 torch.cuda.set_sync_debug_mode("warn"): host milliseconds (host clock, the
 stage ends in a synchronize), device-busy milliseconds (sum of the kernels'
@@ -62,7 +70,8 @@ def measure(name, fn, rows):
             dev_us += ev.device_time
             kernels += 1
     rows.append(dict(stage=name, host_ms=host_ms, enqueue_ms=t_enqueue * 1e3,
-                     device_ms=dev_us / 1e3, kernels=kernels,
+                     device_ms=dev_us / 1e3, device_busy_share=dev_us / 1e3 / host_ms,
+                     kernels=kernels,
                      syncs=sum(sync_at.values()), sync_at=dict(sync_at)))
     print(f"[stage] {name}: host {host_ms:.2f} ms (enqueue {t_enqueue * 1e3:.2f}), device "
           f"busy {dev_us / 1e3:.2f} ms, {kernels} kernels, {sum(sync_at.values())} syncs "
@@ -198,9 +207,111 @@ def profile_bootstrap(chip_smoke, dev, smi, out):
     print(json.dumps(result), flush=True)
 
 
+def profile_revisit(chip_smoke, dev, smi, out):
+    """Stage tables of a relocalization attempt, the bias window's solve and
+    a loop event (see the module docstring)."""
+    from mc_slam_tpu_torch.frontend import bow
+    from mc_slam_tpu_torch.pipeline import mapping, tracking, tracking_ctl
+    p = chip_smoke.EUROC_SYSTEM
+    seq = chip_smoke.make_sequence(
+        dataclasses.replace(chip_smoke.EUROC, n_frames=chip_smoke.EUROC_SYSTEM_FRAMES),
+        seed=0, n_depth=0)
+    cam = chip_smoke.profile_camera(p, dev)
+    res = chip_smoke.run_bootstrap(seq, p, cam, dev)
+    slam = res["slam"]
+    slam.global_refine()
+    cfg, ext, det = slam.cfg, slam.ext, slam.loop
+    attempts, window = [], []
+    orig = (tracking_ctl.relocalize, tracking_ctl.recompute_bias_from_window)
+
+    def spy_reloc(m, st, cfg_, ts, det_, feats, uv, t, *a, **k):
+        attempts.append((m, copy.deepcopy(st), copy.copy(ts), feats, uv, t))
+        return orig[0](m, st, cfg_, ts, det_, feats, uv, t, *a, **k)
+
+    def spy_window(m, ts, *a, **k):
+        window.append((m, copy.copy(ts)))
+        return orig[1](m, ts, *a, **k)
+
+    tracking_ctl.relocalize, tracking_ctl.recompute_bias_from_window = spy_reloc, spy_window
+    try:
+        rv = chip_smoke.run_revisit(res, seq, p, chip_smoke.REVISIT_SRC,
+                                    chip_smoke.REVISIT_FRAMES)
+    finally:
+        tracking_ctl.relocalize, tracking_ctl.recompute_bias_from_window = orig
+    chip_smoke.check_revisit(rv, p)
+    rows = []
+    measure("profiler warm-up (not a stage)", lambda: mapping.cull_and_evict(slam.m, 0), [])
+    gen = lambda: torch.Generator(device=dev).manual_seed(0)
+
+    def attempt(i):
+        m, st, ts, feats, uv, t = attempts[i]
+        return lambda: orig[0](m, copy.deepcopy(st), cfg, copy.copy(ts), det, feats, uv, t, cam,
+                               ext, generator=gen())
+    measure("relocalize: a failed attempt (a blank frame; its 5 candidates fail PnP)",
+            attempt(0), rows)
+    hit = measure("relocalize: the successful attempt, whole", attempt(-1), rows)
+    m, st, ts, feats, uv, t = attempts[-1]
+    q = measure("reloc: bow_histogram (1024 x 32768 words, top-4) + scores of 512 slots",
+                lambda: det.hists @ bow.bow_histogram(feats.desc_pm1, feats.valid.float(),
+                                                      det.vocab, idf=det.idf), rows)
+    cand = torch.as_tensor(([hit["kf"]] * 5), dtype=torch.int64, device=dev)
+    xn = tracking_ctl._normalized(cam, uv)
+    packed = measure(f"reloc: reloc_candidates_batch (5 x mutual match + {tracking.PNP_ITERS} "
+                     f"PnP hypotheses)",
+                     lambda: tracking.reloc_candidates_batch(
+                         m, cand, None, feats.desc_pm1, feats.valid, feats.angle, xn, cam.fx,
+                         generator=gen()), rows)
+    P_b, R_b = tracking_ctl._pnp_to_body(ext, packed[0, 3:12].reshape(3, 3), packed[0, 12:15])
+    measure("reloc: track_frame_visual from the PnP pose (15 px, 4 px; 2 kernel launches)",
+            lambda: tracking.track_frame_visual(m, feats, uv, cam, ext, P_b, R_b,
+                                                radius_coarse=15.0), rows)
+    # how often a relocalization attempt succeeds, by the number of PnP
+    # hypotheses a candidate: 8 generator seeds on each of the first 5 replayed
+    # frames, from the LOST state (whole attempts: any of the 5 candidates)
+    from mc_slam_tpu_torch import camera as tcam
+    from mc_slam_tpu_torch.frontend import extractor
+    m_l, st_l, ts_l = attempts[0][:3]
+    reloc_rate, default_hyp = {}, tracking.PNP_ITERS
+    study = []
+    for src in range(chip_smoke.REVISIT_SRC, chip_smoke.REVISIT_SRC + 5):
+        f_s = extractor.extract(torch.from_numpy(seq.imgs[src]).to(dev), n_features=p.n_feat,
+                                n_levels=p.n_levels)
+        study.append((f_s, tcam.undistort_points(cam, f_s.xy)))
+    try:
+        for n_hyp in (256, 1024, 2048, 4096):
+            tracking.PNP_ITERS = n_hyp
+            hits = [orig[0](m_l, copy.deepcopy(st_l), cfg, copy.copy(ts_l), det, f_s, uv_s, 0.0,
+                            cam, ext, generator=torch.Generator(device=dev).manual_seed(seed))
+                    is not None for f_s, uv_s in study for seed in range(8)]
+            reloc_rate[n_hyp] = dict(attempts=len(hits), relocalized=sum(hits))
+            print(f"[pnp] {n_hyp} hypotheses a candidate: {sum(hits)} of {len(hits)} attempts "
+                  f"relocalized (frames {chip_smoke.REVISIT_SRC}.."
+                  f"{chip_smoke.REVISIT_SRC + 4} x 8 seeds)", flush=True)
+    finally:
+        tracking.PNP_ITERS = default_hyp
+    m_w, ts_w = window[-1]
+    measure("bias window: recompute_bias_from_window (20 frames, 10 LM iterations)",
+            lambda: orig[1](m_w, copy.copy(ts_w), cam, ext, slam.noise), rows)
+
+    st = slam.st
+    src_end = chip_smoke.REVISIT_SRC + chip_smoke.REVISIT_FRAMES - 1
+    spread = [s for s in rv["kf_before"] if st.kf_id_host[s] > src_end]
+    lp = chip_smoke.run_loop_phase(slam, rv["new_kf"], spread)
+    for name, fn in chip_smoke.loop_stage_replays(slam, lp):
+        fn()
+        measure("loop: " + name, fn, rows)
+    result = {"card": smi, "path": "revisit", "reloc": rv["reloc"],
+              "reloc_source_frame": rv["src_reloc"], "loop": lp["closed"],
+              "loop_keyframes": len(st.kf_slots), "relocalized_by_hypotheses": reloc_rate,
+              "stages": rows}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("vi", "bootstrap"), default="vi")
+    ap.add_argument("--path", choices=("vi", "bootstrap", "revisit"), default="vi")
     ap.add_argument("--events", type=int, default=3)
     ap.add_argument("--out", type=Path, default=Path("profile_event.json"))
     args = ap.parse_args()
@@ -217,6 +328,8 @@ def main():
     dev = torch.device("cuda", 0)
     if args.path == "bootstrap":
         return profile_bootstrap(chip_smoke, dev, smi, args.out)
+    if args.path == "revisit":
+        return profile_revisit(chip_smoke, dev, smi, args.out)
     p = dataclasses.replace(chip_smoke.EUROC, n_frames=args.events * chip_smoke.EUROC.kf_every + 1)
     seq = chip_smoke.make_sequence(p, seed=0)
     cam = chip_smoke.profile_camera(p, dev)

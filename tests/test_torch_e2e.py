@@ -1,7 +1,8 @@
 """End-to-end runs of the port's `SlamSystem` on the CPU, the counterparts of
-tests/test_e2e_visual.py and tests/test_e2e_vi.py with their own gates: the
-same rendered dot world, trajectories, IMU synthesis and configurations go
-through `mc_slam_tpu_torch.pipeline.system.SlamSystem(device="cpu")`. One gate
+tests/test_e2e_visual.py, test_e2e_vi.py, test_e2e_reloc.py and
+test_e2e_loop.py with their own gates: the same rendered worlds, trajectories,
+IMU synthesis and configurations go through
+`mc_slam_tpu_torch.pipeline.system.SlamSystem(device="cpu")`. One gate
 differs, and says so where it stands: the gravity direction of the VI run.
 Long-running: marked slow, as the originals."""
 import numpy as np
@@ -11,7 +12,7 @@ import torch
 from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import make_camera
 from mc_slam_tpu_torch.eval.ate import ate_rmse
-from mc_slam_tpu_torch.pipeline.pipebase import OK
+from mc_slam_tpu_torch.pipeline.pipebase import LOST, OK
 from mc_slam_tpu_torch.pipeline.system import SlamConfig, SlamSystem
 
 import synth
@@ -82,12 +83,16 @@ def test_vi_slam_initializes_and_tracks(rng):
     np.testing.assert_allclose(bg_est[:2], bg_true[:2], atol=8e-3)
     np.testing.assert_allclose(bg_est[2], bg_true[2], atol=2.5e-2)
     # gravity direction. The original gates this at cos > 0.995 (~5.7 degrees)
-    # and the JAX package lands at 0.9994-0.99995 here. The port lands at
-    # 0.9910-0.9957 over three RANSAC seeds (0.9936 at this one): its visual
-    # trajectory before the init is less accurate on this weak-texture world
-    # (8 cm against 4 cm), while the init solve itself is equal on equal states
-    # (tests/test_torch_bootstrap.py). Held to 8 degrees until that is found;
-    # at EuRoC width the port's 5 s init is within 1.4 degrees.
+    # and the JAX package lands at 0.6-2.0 degrees here. The port lands at
+    # 4.7-8 degrees over five sample sets of the two-view RANSAC (6.5 at this
+    # one) and at 1.1 degrees with a sixth; the reference-keyframe fallback
+    # never fires in this run. The two packages part at the first map: with the
+    # SAME 200 two-view samples they triangulate 74 and 80 points (their
+    # features differ in a few descriptor bits, so their match sets differ),
+    # and every keyframe decision after that falls on another frame
+    # (ROADMAP.md F19). The init solve is equal on equal states
+    # (tests/test_torch_bootstrap.py). Held to 8 degrees; at EuRoC width the
+    # port's inits are within 1.4 degrees.
     gw = slam.gw.numpy()
     cos = gw @ synth.GW / (np.linalg.norm(gw) * 9.81)
     assert cos > 0.99, f"gravity misaligned: cos={cos}"
@@ -100,3 +105,203 @@ def test_vi_slam_initializes_and_tracks(rng):
                      np.asarray([g[1] for g in gts]), with_scale=True)
     assert stats["rmse"] < 0.08, stats
     assert abs(stats["scale"] - 1.0) < 0.35, f"metric scale off: {stats['scale']}"
+
+
+# ---- tests/test_e2e_reloc.py ----
+
+def reloc_pose(t):
+    P = np.array([0.8 * np.sin(0.4 * t), 0.15 * np.sin(0.3 * t), 0.05 * t])
+    R = lie.so3_exp(torch.tensor([0.0, 0.08 * np.sin(0.5 * t), 0.0])).numpy()
+    return P.astype(np.float32), R.astype(np.float32)
+
+
+BLANK = np.full((360, 480), 40.0, np.float32)
+FAR = (torch.tensor([5.0, 5.0, -3.0]), torch.eye(3))
+
+
+@pytest.mark.slow
+def test_relocalization_after_kidnap(rng):
+    """Track, blind the camera, resume far from the dead-reckoned pose: BoW +
+    PnP must re-acquire."""
+    world = DotWorld(rng)
+    cfg = SlamConfig(max_kf=64, max_mp=2048, n_feat=384, n_levels=3, min_init_matches=50)
+    slam = SlamSystem(CAM, cfg, device="cpu")
+    for i in range(30):
+        P, R = reloc_pose(i * 0.1)
+        slam.track(world.render(R, P), i * 0.1)
+    assert slam.state == OK
+    for j in range(3):
+        slam.track(BLANK, 3.0 + 0.1 * j)
+    assert slam.state == LOST
+    # drop the pose and velocity memory far from truth to force a true relocalization
+    slam.last_pose = FAR
+    slam.velocity = (torch.zeros(3), torch.eye(3))
+    P, R = reloc_pose(0.4)
+    ok = slam.track(world.render(R, P), 3.4)
+    assert ok and slam.state == OK, "relocalization failed"
+    assert slam.events[-1][1] == "reloc"
+    P_est = slam.last_pose[0].numpy()
+    # the mono map has an arbitrary scale: compare with the pose the system
+    # itself estimated when it first visited t = 0.4
+    tr = slam.get_trajectory()
+    P_then = next(np.asarray(p) for (tt, p, _) in tr if abs(tt - 0.4) < 1e-6)
+    assert np.linalg.norm(P_est - P_then) < 0.05, (P_est, P_then)
+
+
+@pytest.mark.slow
+def test_vi_reloc_bias_window_recovers_biases(rng):
+    """A kidnapped VI system: after the relocalization the 20-frame window
+    must solve the gyro bias again from visual poses + IMU, replacing a
+    corrupted estimate."""
+    world = DotWorld(rng)
+    traj = synth.Trajectory("gentle", speed=1.0)
+    bg_true = np.array([0.008, -0.012, 0.01], np.float32)
+    ba_true = np.array([0.04, -0.03, 0.05], np.float32)
+    cfg = SlamConfig(max_kf=96, max_mp=2048, n_feat=384, n_levels=3, min_init_matches=50,
+                     use_imu=True, vi_init_time=5.5, kf_min_gap=2, local_window=8,
+                     g_mag=synth.G)
+    slam = SlamSystem(CAM, cfg, device="cpu")
+    fdt = 0.1
+    for i in range(75):
+        t = i * fdt
+        P, R = traj.pose(t)
+        imu = traj.imu_samples(max(0.0, t - fdt), t, bg=bg_true, ba=ba_true, noise_g=1.7e-4,
+                               noise_a=2e-3, rng=rng) if i else None
+        slam.track(world.render(R, P), t, imu=imu)
+    assert slam.vi_inited and slam.state == OK
+    for j in range(3):
+        t = (75 + j) * fdt
+        slam.track(BLANK, t, imu=traj.imu_samples(t - fdt, t, bg=bg_true, ba=ba_true, rng=rng))
+    assert slam.state == LOST
+    bg_corrupt = bg_true + np.array([0.05, -0.04, 0.03], np.float32)
+    # wrong biases AND a far-away dead-reckoned pose: only BoW + PnP can re-acquire
+    slam.last_ns = slam.last_ns._replace(P=FAR[0], R=FAR[1], bg=torch.from_numpy(bg_corrupt),
+                                         dbg=torch.zeros(3))
+    slam.last_pose = FAR
+    slam.velocity = (torch.zeros(3), torch.eye(3))
+    relocalized = False
+    for k in range(45):
+        t = (78 + k) * fdt
+        ts = t - 78 * fdt + 4.0          # trajectory time: resume at 4.0 s
+        P, R = traj.pose(ts)
+        imu = traj.imu_samples(ts - fdt, ts, bg=bg_true, ba=ba_true, noise_g=1.7e-4,
+                               noise_a=2e-3, rng=rng)
+        ok = slam.track(world.render(R, P), t, imu=imu)
+        if ok and not relocalized:
+            relocalized = True
+            assert slam.reloc_buf is not None      # the window opened
+    assert relocalized, "VI relocalization failed"
+    assert slam.reloc_buf is None, "bias window did not complete"
+    bg_est = slam.last_ns.bg_full.numpy()
+    err0, err = np.abs(bg_corrupt - bg_true), np.abs(bg_est - bg_true)
+    assert np.all(err < 0.4 * err0), (bg_est, bg_true, err, err0)
+    np.testing.assert_allclose(bg_est[:2], bg_true[:2], atol=1e-2)
+    np.testing.assert_allclose(bg_est[2], bg_true[2], atol=2e-2)
+
+
+# ---- tests/test_e2e_loop.py ----
+
+T_LOOP = 24.0   # seconds for the full 360-degree sweep (pan ~8 px/frame)
+R_ORBIT = 0.8
+R_CYL = 6.0
+
+
+class CylinderWorld:
+    """Dots on a cylinder around a small orbit: old scenery leaves the field
+    of view entirely during the sweep."""
+
+    def __init__(self, rng, n=1400, patch=9):
+        phi = rng.uniform(0, 2 * np.pi, n)
+        y = rng.uniform(-2.5, 2.5, n)
+        self.pts = np.stack([R_CYL * np.sin(phi), y, R_CYL * np.cos(phi)], 1).astype(np.float32)
+        self.patches = rng.uniform(40, 255, size=(n, patch, patch)).astype(np.float32)
+        self.r = patch // 2
+
+    def render(self, Rwc, Cw, background=35.0):
+        H, W, r = 360, 480, self.r
+        img = np.full((H, W), background, np.float32)
+        Pc = (np.asarray(Rwc).T @ (self.pts - np.asarray(Cw)).T).T
+        vis = Pc[:, 2] > 0.5
+        u = (300.0 * Pc[:, 0] / np.maximum(Pc[:, 2], 1e-6) + W / 2).astype(int)
+        v = (300.0 * Pc[:, 1] / np.maximum(Pc[:, 2], 1e-6) + H / 2).astype(int)
+        for i in np.nonzero(vis)[0]:
+            if r + 1 <= u[i] < W - r - 1 and r + 1 <= v[i] < H - r - 1:
+                img[v[i] - r:v[i] + r + 1, u[i] - r:u[i] + r + 1] = self.patches[i]
+        return img
+
+
+def orbit_pose(t):
+    theta = 2 * np.pi * min(t, T_LOOP) / T_LOOP
+    C = R_ORBIT * np.array([np.sin(theta), 0.0, np.cos(theta)], np.float32)
+    C[1] = 0.08 * np.sin(1.3 * t)
+    return C, lie.so3_exp(torch.tensor([0.0, theta, 0.0])).numpy().astype(np.float32)
+
+
+def apply_drift_step(slam, after_frame_id, s=1.002, yaw=0.002, dt=(0.004, -0.002, 0.002)):
+    """A small Sim3 warp of everything created after a frame id: the
+    inconsistency that real monocular drift accumulates."""
+    Rg = lie.so3_exp(torch.tensor([0.0, yaw, 0.0]))
+    tg = torch.tensor(dt)
+    m = slam.m
+    kf_sel = (m.kf_active & (m.kf_id > after_frame_id))[:, None]
+    mp_sel = (m.mp_active & (m.mp_first_kf > after_frame_id))[:, None]
+    warp = lambda X: s * (X @ Rg.T) + tg
+    slam.m = m._replace(
+        kf_ns=m.kf_ns._replace(P=torch.where(kf_sel, warp(m.kf_ns.P), m.kf_ns.P),
+                               R=torch.where(kf_sel[..., None], Rg @ m.kf_ns.R, m.kf_ns.R)),
+        mp_pos=torch.where(mp_sel, warp(m.mp_pos), m.mp_pos))
+    Pl, Rl = slam.last_pose
+    slam.last_pose = (warp(Pl), Rg @ Rl)
+
+
+@pytest.mark.slow
+def test_loop_closure_heals_accumulated_drift(rng):
+    """A panoramic circuit with a drift injected while the start region is
+    out of view: on the revisit the two halves of the map disagree by far more
+    than the match window, and only BoW detection + Sim3 + pose-graph
+    correction can close the seam. ba_rtol as in the original (a converged
+    window BA fights each injected warp and smears the halves)."""
+    from mc_slam_tpu_torch.frontend import bow, extractor
+    from mc_slam_tpu_torch.pipeline import loopclosing
+    from mc_slam_tpu_torch.slam_map.mapstate import covisibility_matrix
+    world = CylinderWorld(rng)
+    cfg = SlamConfig(max_kf=200, max_mp=4096, n_feat=384, n_levels=3, min_init_matches=40,
+                     kf_min_gap=2, kf_max_gap=5, ba_rtol=1e-4)
+    slam = SlamSystem(CAM, cfg, device="cpu")
+    # a vocabulary trained on this world's descriptors (the role of loading
+    # ORBvoc; homogeneous synthetic texture scores flat under another one)
+    descs = []
+    for th in np.linspace(0, 2 * np.pi, 8, endpoint=False):
+        P, R = orbit_pose(th / (2 * np.pi) * T_LOOP)
+        f = extractor.extract(torch.from_numpy(world.render(R, P)), n_features=384, n_levels=3)
+        descs.append(f.desc_pm1[f.valid])
+    d = torch.cat(descs)
+    vocab = bow.train_vocab(d, torch.ones(d.shape[0]), torch.Generator().manual_seed(7),
+                            n_words=512, iters=3)
+    slam.loop = loopclosing.LoopDetector(vocab, cfg.max_kf)
+
+    n_frames, fdt = int((T_LOOP + 4.0) / 0.1), 0.1
+    cutoff, n_lost = None, 0
+    for i in range(n_frames):
+        t = i * fdt
+        P, R = orbit_pose(t)
+        ok = slam.track(world.render(R, P), t)
+        n_lost += int(not ok and i > 2)
+        if slam.state == OK and 4.0 <= t <= T_LOOP - 4.0:     # the start region is out of view
+            if cutoff is None:
+                cutoff = slam.frame_id - 1
+            apply_drift_step(slam, cutoff)
+    assert slam.state == OK
+    assert n_lost < 10, f"{n_lost} lost frames"
+    assert slam.n_loops_closed >= 1, "loop closure never fired"
+    gap = float(torch.linalg.norm(slam.last_pose[0] - slam.m.kf_ns.P[0]))
+    # the injected drift accumulates to ~0.55 map units; the closure reclaims most of it
+    assert gap < 0.4, f"seam not healed: gap={gap}"
+    assert bool(torch.all(torch.isfinite(slam.m.mp_pos)))
+    # cross-seam covisibility after the fusion rounds
+    W = covisibility_matrix(slam.m).numpy()
+    ids, act = slam.m.kf_id.numpy(), slam.m.kf_active.numpy()
+    early = act & (ids <= np.quantile(ids[act], 0.2))
+    late = act & (ids >= np.quantile(ids[act], 0.8))
+    seam_w = W[np.ix_(early, late)]
+    assert seam_w.max() >= 10, f"no cross-seam covisibility (max={seam_w.max()})"

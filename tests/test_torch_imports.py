@@ -92,6 +92,36 @@ def test_system_modules_are_covered(mod):
     assert proc.returncode == 0, proc.stderr
 
 
+PLACE_MODULES = ("lie", "frontend.bow", "geometry.pnp", "geometry.sim3solver",
+                 "solver.factors", "solver.sim3opt", "solver.posegraph", "pipeline.tracking",
+                 "pipeline.loopclosing", "pipeline.loopctl")
+
+
+@pytest.mark.parametrize("mod", PLACE_MODULES)
+def test_place_recognition_modules_are_covered(mod):
+    """Every module of the relocalization / loop-closing slice is among those
+    the import test walks, names neither jax nor the JAX package in an import
+    line, and imports by itself in a fresh interpreter without pulling either
+    in (the vocabulary is read as a data file, not imported)."""
+    assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
+    src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
+    imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
+    assert imports and not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
+                               for l in imports)
+    proc = _run(f"import sys, mc_slam_tpu_torch.{mod}\n"
+                "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_vocabulary_loads_without_the_jax_package():
+    proc = _run("import sys\n"
+                "from mc_slam_tpu_torch.frontend import bow\n"
+                "v, idf = bow.load_default_vocab(device='cpu'), bow.load_default_idf('cpu')\n"
+                "assert v.shape == (32768, 256) and idf.shape == (32768,)\n"
+                "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr
+
+
 @pytest.mark.parametrize("tool", ["bench_hamming", "profile_event", "eval_clone"])
 def test_measurement_tools_refuse_without_gpu(tool):
     proc = subprocess.run([sys.executable, "-m", f"mc_slam_tpu_torch.tools.{tool}"],

@@ -101,10 +101,17 @@ def test_blank_frame_gives_lost_counted_and_logged():
     fid, kind, detail = slam.events[-1]
     assert (fid, kind) == (3, "lost") and detail["mode"] == "vis"
     assert detail["n_in"] < slam.cfg.min_track_inliers
-    # relocalization is not ported: LOST stays LOST, every frame is counted
-    assert slam.track(seq.imgs[4], seq.times[4], seq.imu[4]) is False
+    # a LOST system tries to relocalize on every frame: a second blank frame
+    # fails and is counted, the next real frame is relocalized against the map
+    assert slam.track(blank, seq.times[4], seq.imu[4]) is False
     assert slam.state == LOST and slam.n_lost_frames == 2 and slam.events[-1][:2] == (4, "lost")
+    assert slam.events[-1][2]["mode"] == "lost"
     assert slam.frame_id == 5 and len(slam.get_trajectory()) == n_rows
+    assert slam.track(seq.imgs[4], seq.times[5], seq.imu[5]) is True
+    assert slam.state == OK and slam.n_lost_frames == 2 and len(slam.traj) == n_rows + 1
+    fid, kind, detail = slam.events[-1]
+    assert (fid, kind) == (5, "reloc") and detail["n_in"] >= slam.cfg.min_track_inliers
+    assert slam.last_outcome.mode == "reloc" and slam.reloc_buf is None   # no VI init yet
 
 
 def test_inputs_and_options_that_are_not_ported_raise():
@@ -115,10 +122,13 @@ def test_inputs_and_options_that_are_not_ported_raise():
     with pytest.raises(NotImplementedError, match="stereo"):
         slam.track(img, 0.0, img_right=img)
     assert slam.frame_id == 0 and slam.state == NO_IMAGES_YET
-    assert slam.enable_loop_closing is False
+    # loop closing is on by default and can be set, as in the JAX class
+    assert slam.enable_loop_closing is True
     slam.enable_loop_closing = False
-    with pytest.raises(NotImplementedError, match="loop closing"):
-        slam.enable_loop_closing = True
+    assert slam.enable_loop_closing is False
+    slam.enable_loop_closing = True
+    assert slam.enable_loop_closing is True and slam.n_loops_closed == 0
+    assert slam.loop.hists.shape == (slam.cfg.max_kf, 32768) and slam.loop_edges == []
     with pytest.raises(NotImplementedError, match="mesh"):
         slam.enable_mesh()
     # the XYZ form of the VI window BA is not ported either

@@ -42,14 +42,16 @@ INT_FIELDS = ("kf_mp", "mp_active", "mp_ref_kf", "mp_first_kf", "kf_active", "kf
               "kf_level", "kf_feat_valid", "kf_desc", "kf_pm1", "mp_desc", "mp_pm1")
 
 
-def jax_samples(key, w, n_iters=200):
-    """The (n_iters, 8) sample indices that the JAX package's
-    init2view.initialize_two_view(key, ..., w, ...) draws inside
-    (its lines :231-234, repeated with the same key)."""
+def jax_samples(key, w, n_iters=200, k=8):
+    """The (n_iters, k) sample indices that the JAX package's RANSAC
+    functions draw inside from `key` and the weights `w`:
+    init2view.initialize_two_view (200 x 8, its lines :231-234),
+    pnp.pnp_ransac (256 x 6, :86-89), sim3solver.sim3_ransac (300 x 3,
+    :87-90), repeated here with the same key."""
     probs = w / jnp.maximum(jnp.sum(w), 1.0)
     return np.asarray(jax.random.categorical(
-        key, jnp.log(jnp.maximum(probs, 1e-12))[None, :].repeat(n_iters * 8, 0)
-    ).reshape(n_iters, 8))
+        key, jnp.log(jnp.maximum(probs, 1e-12))[None, :].repeat(n_iters * k, 0)
+    ).reshape(n_iters, k))
 
 
 def jax_map(m: MapState):
@@ -170,3 +172,43 @@ def boot_run():
     with chip_smoke.capture_bootstrap_states() as captured:
         res = chip_smoke.run_bootstrap(seq, BOOT, cam, "cpu")
     return seq, cam, ext, res, captured
+
+
+REVISIT_SRC = 30        # the replayed stretch of the BOOT sequence starts at this frame
+REVISIT_FRAMES = 46     # ... and has so many frames
+
+
+@functools.lru_cache(maxsize=None)
+def revisit_run():
+    """chip_smoke.py's path 5 at the BOOT profile on the CPU, on a COPY of
+    `boot_run()`'s system: three blank frames lose the camera, the carried
+    pose and gyro bias are corrupted, frames REVISIT_SRC .. +REVISIT_FRAMES-1
+    are fed again: relocalization, the 20-frame bias window, VI tracking with
+    keyframes (~30 s on top of boot_run). Returns (seq, cam, ext, slam, rv,
+    cap): the copied system after the replay, `chip_smoke.run_revisit`'s dict,
+    and what was captured on the way: cap["lost"] the (MapState, MappingState,
+    TrackState) right after the corruption, cap["window"] the (MapState,
+    TrackState) handed to `recompute_bias_from_window`."""
+    from mc_slam_tpu_torch.pipeline import tracking_ctl
+    seq, cam, ext, res, _ = boot_run()
+    torch.set_num_threads(2)
+    slam = copy.deepcopy(res["slam"])
+    cap = {}
+    orig = (tracking_ctl.recompute_bias_from_window, tracking_ctl.relocalize)
+
+    def spy_window(m, ts, *a, **k):
+        cap["window"] = (m, copy.copy(ts))
+        return orig[0](m, ts, *a, **k)
+
+    def spy_reloc(m, st, cfg, ts, *a, **k):
+        if float(ts.P[0]) == 5.0 and "lost" not in cap:      # the corrupted pose
+            cap["lost"] = (m, copy.deepcopy(st), copy.copy(ts))
+        return orig[1](m, st, cfg, ts, *a, **k)
+
+    tracking_ctl.recompute_bias_from_window, tracking_ctl.relocalize = spy_window, spy_reloc
+    try:
+        rv = chip_smoke.run_revisit(dict(res, slam=slam), seq, BOOT, REVISIT_SRC,
+                                    REVISIT_FRAMES)
+    finally:
+        tracking_ctl.recompute_bias_from_window, tracking_ctl.relocalize = orig
+    return seq, cam, ext, slam, rv, cap
