@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization and
-loop closing on one NVIDIA GPU.
+"""Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization,
+loop closing and depth sensors (RGB-D, stereo + IMU) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -87,7 +87,28 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     come back within 3 cm; seam covisibility of at least 10; no cost curve
     rises; kernel == twin on the guided verification's search. Prints ms and
     flagged syncs of detect, Sim3 batch, verify, pose graph, both fusion
-    rounds and the whole-map BA, and the kernels each launches when run alone.
+    rounds and the whole-map BA, and the kernels each launches when run alone;
+10. path 6, "euroc-rgbd": a new `SlamSystem` (IMU off, cull_min_obs 2, loop
+    closing on) fed the first 120 clone frames with their rendered depth
+    through `track(img, t, depth=)`: the map starts metric from frame 0's
+    depth, every pose solve and window BA carries the u_right row, every
+    keyframe adds its nearest unmatched depth points. Fails unless:
+    initialized from depth at frame 0 with at least 50 points, no frame
+    LOST, every BA cost finite and not rising, u_right rows in every window
+    BA, landmark overflow 0, ATE under 2 cm and the alignment scale within
+    0.05 of 1 (tests/test_e2e_depth.py's metric gate), kernel == twin on the
+    real searches of 3 frames;
+11. path 7, "euroc-stereo-vi": the same clone frames with a rectified right
+    image (`render_right`: the left camera moved 0.11 m along its x axis),
+    `track(img, t, imu, img_right=)` with the IMU and VI init at 5 s, then 20
+    VI frames: `stereo_depth`, the 3-row residual in the visual and VI pose
+    solves, the visual window BA with u_right rows, VI init on a metric
+    map, and the XYZ window VI BA at every event after it. Fails unless: no
+    frame LOST, VI init accepted by frame 160, at least one XYZ window VI BA,
+    costs finite and not rising, u_right rows in every window BA, the
+    alignment scale within 0.2 of 1. Both paths print ms per frame (median,
+    p90), ms per event, the stereo extraction + matching ms, launches and
+    flagged syncs.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -236,7 +257,7 @@ def _t(a, device, dtype=torch.float32):
 def build_map(seq: Sequence, p: Profile, cam, ext, device):
     """Localization-mode map: a keyframe every `kf_every` frames at the
     ground-truth pose (mapping.write_keyframe), its features' depth points
-    (system._depth_to_world + _alloc_points). Returns (m, n_keyframes)."""
+    (mapping_ctl.depth_to_world + alloc_points). Returns (m, n_keyframes)."""
     m = empty_map(p.max_kf, p.max_mp, p.n_feat, device=device)
     slot = 0
     for i in range(0, p.n_frames, p.kf_every):
@@ -254,9 +275,9 @@ def build_map(seq: Sequence, p: Profile, cam, ext, device):
             _t(TRUE_BA, device), _t(seq.times[i], device), _t(i, device, torch.int32),
             uv, f.level, f.angle, torch.full((p.n_feat,), -1.0, device=device),
             f.desc, f.desc_pm1, f.valid)
-        Xw = system._depth_to_world(cam, ext, uv, _t(d, device), P, R)
+        Xw = mapping_ctl.depth_to_world(cam, ext, uv, _t(d, device), P, R)
         good = f.valid.cpu().numpy() & (d > 1e-3)
-        m, _, _ = system._alloc_points(m, Xw, f.desc, f.desc_pm1, f.level, slot,
+        m, _, _ = mapping_ctl.alloc_points(m, Xw, f.desc, f.desc_pm1, f.level, slot,
                                        good, p.n_levels, i, angle=f.angle)
         slot += 1
     return m, slot
@@ -376,9 +397,9 @@ def seed_keyframe0(seq: Sequence, p: Profile, cfg, cam, ext, noise, device):
     ys = np.clip(xy[:, 1].astype(int), 0, p.height - 1)
     d = seq.depths[0][ys, xs]
     d = np.where(d > 1e-3, d, -1.0).astype(np.float32)
-    Xw = system._depth_to_world(cam, ext, uv, _t(d, device), ns0.P, ns0.R)
+    Xw = mapping_ctl.depth_to_world(cam, ext, uv, _t(d, device), ns0.P, ns0.R)
     good = f.valid.cpu().numpy() & (d > 1e-3)
-    m, _, _ = system._alloc_points(m, Xw, f.desc, f.desc_pm1, f.level, 0, good,
+    m, _, _ = mapping_ctl.alloc_points(m, Xw, f.desc, f.desc_pm1, f.level, 0, good,
                                    p.n_levels, 0, angle=f.angle)
     return m, st
 
@@ -1236,6 +1257,268 @@ def check_bootstrap(res, seq: Sequence, p: Profile):
                 gravity_cos=cos)
 
 
+# ---------------------------------------------------------------------------
+# Paths 6 and 7: the depth sensors (RGB-D, rectified stereo + IMU)
+# ---------------------------------------------------------------------------
+
+DEPTH_FRAMES = 120          # clone frames of path 6, and of path 7 before its VI frames
+ATE_LIMIT_RGBD = 0.02       # m, path 6
+SCALE_TOL_RGBD = 0.05       # path 6: tests/test_e2e_depth.py::test_rgbd_mode_metric's gate
+SCALE_TOL_STEREO = 0.2      # path 7: tests/test_e2e_depth.py::test_stereo_mode_metric's gate
+STEREO_VI_FRAMES = 20       # path 7: VI frames after the accepted VI initialization, at least
+STEREO_VI_MAX = 60          # ... and at most, while no XYZ window VI BA has run yet
+
+
+def depth_config(p: Profile, use_imu: bool):
+    """The euroc profile at the sizes of `p` for a depth sensor: cull_min_obs 2
+    (the reference's nThObs for stereo / RGB-D), the IMU on or off."""
+    return dataclasses.replace(slam_config(p), use_imu=use_imu, cull_min_obs=2)
+
+
+def render_right(seq: Sequence, p: Profile, frames, seed: int = 0):
+    """Right images of a rectified stereo rig on the clone: the left camera
+    (world-from-camera Rwc = R Rbc at Cw = P + R pbc) moved by
+    SlamConfig.stereo_baseline along its own x axis, rendered by the same
+    RoomWorld (as tests/render.py's render_stereo does for the dot world).
+    Returns {frame: (H, W) uint8}; the frames render in a thread pool."""
+    from concurrent.futures import ThreadPoolExecutor
+    cam = profile_camera(p, "cpu")
+    world = RoomWorld(np.random.default_rng(seed), tex_size=p.tex_size, tex_scale=1.0)
+    Rbc, pbc = TBC[:3, :3], TBC[:3, 3]
+    b = system.SlamConfig().stereo_baseline
+
+    def one(i):
+        Rwc = seq.R[i] @ Rbc
+        return world.render(cam, Rwc, seq.P[i] + seq.R[i] @ pbc + Rwc @ np.array([b, 0.0, 0.0]))
+
+    with ThreadPoolExecutor(8) as ex:
+        return dict(zip(frames, ex.map(one, frames)))
+
+
+@contextlib.contextmanager
+def window_ba_probe():
+    """While active, record every XYZ BA call of the keyframe events and the
+    whole-map BAs: (solver, window or whole map, VI initialized, the count of
+    valid u_right rows as a device tensor, read after the run)."""
+    from mc_slam_tpu_torch.solver import ba as tba
+    calls = []
+    orig = (tba.visual_ba, ba_vi.vi_ba)
+
+    def spy(name, fn):
+        def wrapped(*a, **k):
+            obs = a[3] if name == "visual_ba" else a[2]
+            n_ur = (None if obs.ur is None
+                    else torch.sum((obs.ur >= 0) & (obs.valid > 0)))
+            if not k.get("fix_points", False):
+                calls.append(dict(solver=name, window=k.get("two_phase", True), n_ur=n_ur))
+            return fn(*a, **k)
+        return wrapped
+
+    tba.visual_ba, ba_vi.vi_ba = spy("visual_ba", orig[0]), spy("vi_ba", orig[1])
+    try:
+        yield calls
+    finally:
+        tba.visual_ba, ba_vi.vi_ba = orig
+
+
+def run_depth(seq: Sequence, p: Profile, cam, device, right=None, recorder=None):
+    """Paths 6 and 7 through the port's entry point. RGB-D (right is None):
+    `track(img, t, depth=)` on the first DEPTH_FRAMES frames, the IMU off.
+    Stereo (right: frame -> right image, or a callable): `track(img, t, imu,
+    img_right=)` with the IMU and VI init at p.vi_init_time, until
+    STEREO_VI_FRAMES frames after the accepted VI initialization (deadline
+    p.boot_max_frame) and an event with the XYZ window VI BA (at most
+    STEREO_VI_MAX VI frames). Loop closing on, as by default. Nothing comes from
+    ground truth: the map starts from the first frame's depth.
+    Returns a dict: per-frame records, event and VI-attempt records, the BA
+    calls of `window_ba_probe`, the trajectory, the system. Raises when a
+    frame is LOST or the VI deadline passes."""
+    cuda = torch.device(device).type == "cuda"
+    stereo = right is not None
+    slam = system.SlamSystem(cam, depth_config(p, use_imu=stereo), Tbc=TBC, device=device)
+    slam.event_kw = dict(max_new=p.max_new, ba_Pw=p.ba_Pw)
+    st = slam.st
+    get_right = right if callable(right) else (lambda i: right[i])
+    frames, events, attempts = [], [], []
+    n_vi, i_accept, i = 0, None, -1
+    orig = match_cuda.hamming_top2_windowed
+    if recorder is not None:
+        match_cuda.hamming_top2_windowed = recorder
+    try:
+        with window_ba_probe() as ba_calls:
+            xyz_vi = lambda: any(c["window"] and c["solver"] == "vi_ba" for c in ba_calls)
+            while ((n_vi < STEREO_VI_FRAMES or (not xyz_vi() and n_vi < STEREO_VI_MAX))
+                   if stereo else i + 1 < p.n_frames):
+                i += 1
+                if stereo and i_accept is None and i > p.boot_max_frame:
+                    raise AssertionError(f"VI initialization not accepted by frame "
+                                         f"{p.boot_max_frame}; attempts: {attempts}")
+                if recorder is not None:
+                    recorder.frame = i
+                    if stereo and (i == 1 or (st.vi_inited and n_vi == 0)):
+                        recorder.keep_frames.add(i)     # the first frame, the first VI frame
+                kw = dict(img_right=get_right(i)) if stereo else dict(depth=seq.depths[i])
+                was_vi = st.vi_inited
+                if cuda:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with sync_watch(cuda) as caught:
+                    slam.event_probe = ev_timer = EventTimer(cuda, caught)
+                    slam.vi_probe = vi_timer = EventTimer(cuda, caught)
+                    ok = slam.track(seq.imgs[i], float(seq.times[i]),
+                                    seq.imu[i] if stereo else None, **kw)
+                    if cuda:
+                        torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if not ok:
+                    raise AssertionError(f"frame {i} not tracked (state {slam.state}; events "
+                                         f"{slam.events[-3:]})")
+                out = slam.last_outcome
+                n_vi += was_vi
+                attempted = out is not None and out.vi is not None and out.vi.attempted
+                frames.append(dict(frame=i, vi=was_vi, n_inliers=out.n_inliers if out else 0,
+                                   ms=ms, syncs=count_syncs(caught),
+                                   plain=out is not None and out.keyframe is None
+                                   and not attempted))
+                if out is not None and out.event is not None:
+                    e = _event_record(i, out.keyframe, out.event, ev_timer)
+                    e["vi"] = was_vi
+                    events.append(e)
+                if attempted:
+                    v = out.vi
+                    vms = vi_timer.ms()
+                    a = dict(frame=i, t=float(seq.times[i]), n_kf=v.n_kf, scale=v.scale,
+                             accepted=v.accepted, reason=v.reason, ms=sum(vms.values()),
+                             ba_visual=_ba_record(v.ba_visual, vms.get("gba_visual")))
+                    if v.accepted:
+                        a["ba_vi"] = _ba_record(v.ba_vi, vms.get("gba_vi"))
+                        i_accept = i
+                    attempts.append(a)
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+        slam.event_probe = slam.vi_probe = None
+    for c in ba_calls:
+        c["n_ur"] = None if c["n_ur"] is None else int(c["n_ur"])
+    return dict(frames=frames, events=events, attempts=attempts, ba_calls=ba_calls,
+                i_accept=i_accept, last_frame=i, traj=slam.get_trajectory(), slam=slam,
+                init=slam.events[0])
+
+
+def check_depth(res, seq: Sequence, stereo: bool):
+    """Paths 6 and 7's gates; raises on the first that fails. Returns the
+    measured values."""
+    slam = res["slam"]
+    fid, kind, detail = res["init"]
+    if (fid, kind) != (0, "init") or detail["n_points"] < 50:
+        raise AssertionError(f"not initialized from depth at frame 0: {res['init']}")
+    if slam.n_lost_frames or len(res["traj"]) != len(res["frames"]):
+        raise AssertionError(f"{slam.n_lost_frames} frames lost; {len(res['traj'])} trajectory "
+                             f"rows for {len(res['frames'])} frames")
+    bas = [(f"event at frame {e['frame']}", e) for e in res["events"]]
+    for a in res["attempts"]:
+        bas.append((f"whole-map visual BA at frame {a['frame']}", a["ba_visual"]))
+        if "ba_vi" in a:
+            bas.append((f"whole-map VI BA at frame {a['frame']}", a["ba_vi"]))
+    for name, b in bas:
+        if not (np.isfinite(b["cost0"]) and np.isfinite(b["cost"])) or b["cost"] > b["cost0"]:
+            raise AssertionError(f"{name}: BA cost {b['cost0']} -> {b['cost']}")
+    for e in res["events"]:
+        if e["overflow"] != 0:
+            raise AssertionError(f"event at frame {e['frame']}: landmark overflow {e['overflow']}")
+    windows = [c for c in res["ba_calls"] if c["window"]]
+    if not windows or any(not c["n_ur"] for c in windows):
+        raise AssertionError(f"a window BA without u_right rows: {windows}")
+    xyz_vi = [c for c in windows if c["solver"] == "vi_ba"]
+    if stereo:
+        if res["i_accept"] is None:
+            raise AssertionError("VI initialization not accepted")
+        if not xyz_vi:
+            raise AssertionError("no XYZ window VI BA ran after VI init")
+    t_est = np.asarray([x[0] for x in res["traj"]])
+    P_est = np.asarray([x[1] for x in res["traj"]])
+    stats = ate_rmse(t_est, P_est, seq.times, seq.P, with_scale=True)
+    tol = SCALE_TOL_STEREO if stereo else SCALE_TOL_RGBD
+    if not abs(stats["scale"] - 1.0) < tol:
+        raise AssertionError(f"alignment scale {stats['scale']} (not within {tol} of 1)")
+    if not stereo and not stats["rmse"] < ATE_LIMIT_RGBD:
+        raise AssertionError(f"ATE {stats['rmse']} m (limit {ATE_LIMIT_RGBD} m)")
+    return dict(ate_m=stats["rmse"], scale=stats["scale"], n=stats["n"],
+                n_window_ba=len(windows), n_xyz_vi_window_ba=len(xyz_vi),
+                min_ur_rows=min(c["n_ur"] for c in windows))
+
+
+def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
+    """One run of `run_depth` on the card with its report lines and checks
+    (paths 6 and 7). Returns (detail dict, kernel launches of the run, max
+    kernel-vs-twin error on the recorded searches)."""
+    stereo = right is not None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = SearchRecorder(keep_frames=() if stereo else {1, p.n_frames // 2, p.n_frames - 1},
+                         timed=False)
+    hamming_top2_windowed.launches = 0
+    t0 = time.time()
+    res = run_depth(seq, p, cam, dev, right=right, recorder=rec)
+    launches = hamming_top2_windowed.launches
+    wall = time.time() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    for e in res["events"]:
+        _phase("event", ("VI " if e["vi"] else "visual ") + event_line(e))
+    for a in res["attempts"]:
+        _phase("vi-init", f"frame {a['frame']} t {a['t']:.2f} s, {a['n_kf']} keyframes: scale "
+                          f"{a['scale']:.4f} -> {a['reason']}; {a['ms']:.0f} ms")
+    measured = check_depth(res, seq, stereo)
+    slam = res["slam"]
+    fr = res["frames"]
+    vis_ms = [f["ms"] for f in fr if not f["vi"] and f["plain"]]
+    vi_ms = [f["ms"] for f in fr if f["vi"] and f["plain"]]
+    ev_ms = [e["pre_ms"] + e["ba_ms"] + e["post_ms"] + e["cull_ms"] for e in res["events"]]
+    ev_vi_ms = [e["pre_ms"] + e["ba_ms"] + e["post_ms"] + e["cull_ms"] for e in res["events"]
+                if e["vi"]]
+    timers = slam.timers.summary()
+    stereo_ms = timers.get("stereo", {}).get("median_ms", float("nan"))
+    _phase(name, f"{len(fr)} frames through SlamSystem.track({'img_right' if stereo else 'depth'}"
+                 f"=) in {wall:.1f} s: initialized from depth at frame 0 with "
+                 f"{res['init'][2]['n_points']} points; {slam.n_kf} keyframes, "
+                 f"{len(res['events'])} events, lost frames {slam.n_lost_frames}; launches "
+                 f"{launches}; ms/frame median {np.median(vis_ms):.1f} p90 "
+                 f"{np.percentile(vis_ms, 90):.1f}"
+                 + (f", VI median {np.median(vi_ms):.1f}" if vi_ms else "")
+                 + f"; ms/event median {np.median(ev_ms):.1f}"
+                 + (f" (XYZ VI window events {np.median(ev_vi_ms):.1f})" if ev_vi_ms else "")
+                 + (f"; stereo extraction + matching median {stereo_ms:.1f} ms" if stereo else "")
+                 + f"; flagged syncs per plain frame median "
+                 f"{np.median([f['syncs'] for f in fr if f['plain']]):.0f}; peak device memory "
+                 f"{peak_mb:.0f} MiB")
+    _phase(name, f"ATE {measured['ate_m'] * 1e3:.2f} mm over {measured['n']} frames, alignment "
+                 f"scale {measured['scale']:.4f} (within "
+                 f"{SCALE_TOL_STEREO if stereo else SCALE_TOL_RGBD} of 1)"
+                 + ("" if stereo else f", ATE limit {ATE_LIMIT_RGBD * 1e3:.0f} mm")
+                 + f"; {measured['n_window_ba']} window BAs, all with u_right rows (at least "
+                 f"{measured['min_ur_rows']})"
+                 + (f"; VI init accepted at frame {res['i_accept']}, "
+                    f"{measured['n_xyz_vi_window_ba']} XYZ window VI BAs after it"
+                    if stereo else ""))
+    if launches < 2 * len(fr) - 2:
+        raise AssertionError(f"kernel launched {launches} times for {len(fr)} frames")
+    err, n_real = _real_search_check(rec)
+    _phase(name, f"kernel == twin on the {n_real} real searches of "
+                 + ("the first frame and the first VI frame" if stereo else "3 frames"))
+    strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
+    detail = {"frames": len(fr), "launches": launches, "measured": measured,
+              "events": [strip(e) for e in res["events"]], "attempts": res["attempts"],
+              "accepted_at_frame": res["i_accept"], "keyframes_inserted": slam.n_kf,
+              "frame_ms_median": float(np.median(vis_ms)),
+              "frame_ms_p90": float(np.percentile(vis_ms, 90)),
+              "frame_ms_vi_median": float(np.median(vi_ms)) if vi_ms else None,
+              "event_ms_median": float(np.median(ev_ms)),
+              "event_ms_xyz_vi_median": float(np.median(ev_vi_ms)) if ev_vi_ms else None,
+              "stereo_ms_median": stereo_ms if stereo else None,
+              "frame_syncs_median": float(np.median([f["syncs"] for f in fr if f["plain"]])),
+              "peak_device_MiB": peak_mb, "seconds": wall, "timers": timers}
+    return detail, launches, err
+
+
 def event_line(e):
     return (f"frame {e['frame']} -> keyframe {e['slot']}: {e['n_created']} points "
             f"triangulated, {e['n_fused']} associations fused, {e['n_culled']} points "
@@ -1657,7 +1940,7 @@ def main():
     p = EUROC
     t0 = time.time()
     seq_boot = make_sequence(dataclasses.replace(p, n_frames=EUROC_SYSTEM_FRAMES), seed=0,
-                             n_depth=p.n_frames)
+                             n_depth=DEPTH_FRAMES)
     seq = dataclasses.replace(seq_boot, imgs=seq_boot.imgs[:p.n_frames],
                               depths=seq_boot.depths[:p.n_frames],
                               imu=seq_boot.imu[:p.n_frames])
@@ -1668,7 +1951,8 @@ def main():
     check_pack(m.mp_desc, m.mp_pm1)
     check_pack(m.kf_desc.reshape(-1, 8), m.kf_pm1.reshape(-1, 256))
     _phase("map", f"{EUROC_SYSTEM_FRAMES} frames {p.width}x{p.height} rendered, the first "
-                  f"{p.n_frames} of them for paths 1 and 2; {n_kf} "
+                  f"{p.n_frames} of them for paths 1 and 2, the depth of the first "
+                  f"{DEPTH_FRAMES} kept for path 6; {n_kf} "
                   f"keyframes, {n_pts}/{p.max_mp} map points "
                   f"({time.time() - t0:.1f} s)")
     # warm-up pass (allocator, cuBLAS/cuSOLVER handles) on a copy of the map,
@@ -1753,13 +2037,31 @@ def main():
     # ---- phase 7: path 5, kidnap / relocalization / loop closing on path 4's system ----
     detail5, launches_rev, err = revisit_phase(res4, seq_boot, EUROC_SYSTEM)
     max_err = max(max_err, err)
+    del res4
+
+    # ---- phase 8: path 6, RGB-D from the clone's rendered depth, no IMU ----
+    detail6, launches_rgbd, err = depth_phase(
+        "path6", seq_boot, dataclasses.replace(p, n_frames=DEPTH_FRAMES), cam, dev)
+    max_err = max(max_err, err)
+
+    # ---- phase 9: path 7, rectified stereo + IMU, VI init at 5 s ----
+    t0 = time.time()
+    right_imgs = render_right(seq_boot, p, range(DEPTH_FRAMES + 20))
+
+    def right(i):
+        if i not in right_imgs:
+            right_imgs.update(render_right(seq_boot, p, range(i, i + 20)))
+        return right_imgs[i]
+    _phase("path7", f"{len(right_imgs)} right images rendered ({time.time() - t0:.1f} s)")
+    detail7, launches_stereo, err = depth_phase("path7", seq_boot, p, cam, dev, right=right)
+    max_err = max(max_err, err)
 
     bound_ms, bound_by, bound_detail = bounds[15.0]
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (launches_loc + launches_map + launches_boot + launches_sys
-                     + launches_rev),
+                     + launches_rev + launches_rgbd + launches_stereo),
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
@@ -1781,7 +2083,8 @@ def main():
                         "event_ms_median": float(np.median(ev_ms)),
                         "frame_ms_median": float(np.median(res2["frame_ms"])),
                         "peak_device_MiB": peak_mb},
-              "path3": detail3, "path4": detail4, "path5": detail5,
+              "path3": detail3, "path4": detail4, "path5": detail5, "path6": detail6,
+              "path7": detail7,
               "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
           flush=True)

@@ -105,7 +105,8 @@ HOST_FIELDS = {
     "vi_inited": "vi_inited", "kf_time_host": "kf_time_host", "kf_id_host": "kf_id_host",
     "broken_chain_slots": "broken_chain_slots", "loop_edges": "loop_edges",
     "chain_break_pending": "_chain_break_pending", "ref_tracked": "_ref_tracked_cache",
-    "n_loops_closed": "n_loops_closed", "last_loop_nkf": "_last_loop_nkf"}
+    "n_loops_closed": "n_loops_closed", "last_loop_nkf": "_last_loop_nkf",
+    "sensor_depth": "sensor_depth"}
 
 
 def host_state_to_dict(st, traj=None):

@@ -8,7 +8,8 @@ class (pipeline/system.py) holds. Covered: keyframe insertion before and after V
 initialization (`insert_keyframe`), the IMU edge lists (`imu_edge_lists`),
 the covisibility queries, every branch of `_local_ba` (`local_ba`: the
 visual window before VI init, the whole-map `force_all` form in its visual
-and XYZ VI variants, the inverse-depth VI window `local_ba_idp`), and the
+and XYZ VI variants, the inverse-depth VI window `local_ba_idp`, and the XYZ
+VI window taken with a depth sensor or `use_idp_ba=False`), and the
 event order of `_local_mapping` followed by `_harvest_event`
 (`keyframe_event`: the stats are noted, then keyframes are culled), slot
 allocation with recycling and eviction (`alloc_kf_slot`), keyframe removal
@@ -18,7 +19,12 @@ and the landmark-chunked whole-map BA (`global_ba_chunked`, taken by a
 event: `insert_keyframe` registers the keyframe's BoW histogram with the
 detector it is given, `keyframe_event` scores it against every keyframe's
 (`EventResult.detect`), and the caller (tracking_ctl) hands that to
-`loopctl.try_close_loop`. Not covered: the mesh-sharded form of the chunked BA.
+`loopctl.try_close_loop`. With a depth sensor (`MappingState.sensor_depth`)
+every XYZ BA carries the keyframes' u_right rows (`kf_ur`, bf = fx *
+baseline) and the association prune gates them at CHI2_STEREO; the depth
+points of a keyframe are written by `add_depth_points` (with `depth_to_world`
+and `alloc_points`, which also seed the map of a depth frame). Not covered:
+the mesh-sharded form of the chunked BA.
 
 Padded window rows are never written back (the JAX package pads with copies
 of the last slot and scatters every row, so that slot is written several
@@ -75,6 +81,7 @@ class MappingState:
     chain_break_pending: bool = False      # the next keyframe starts a new IMU chain
     n_loops_closed: int = 0
     last_loop_nkf: int = -100              # n_kf at the last closure (the 10-keyframe cooldown)
+    sensor_depth: bool = False             # stereo / RGB-D input seen: u_right rows in every BA
 
 
 class EventResult(NamedTuple):
@@ -172,8 +179,9 @@ def visual_window_slots(m: MapState, st: MappingState, cfg: SlamConfig):
 
 
 def window_problem(st: MappingState, cfg: SlamConfig):
-    """The slots, free mask, edge lists and prior flag of the inverse-depth
-    window BA, on the host (SlamSystem._local_ba's window and pad rule).
+    """The slots, free mask, edge lists and prior flag of the VI window BA
+    (inverse-depth or XYZ), on the host (SlamSystem._local_ba's window and
+    pad rule).
     Returns None when the window has fewer than 2 keyframes, else a dict
     with all_slots (padded), n_real, free, idx_i, idx_j, ev, front_broken."""
     window = vi_window_slots(st, cfg)
@@ -214,6 +222,29 @@ def _pad_window(window, fixed, pad_to):
     return all_slots, n_real, free
 
 
+def _pack_problem(prob, dev):
+    """ONE host->device copy of a window problem's slots, edge lists and
+    masks (all of the padded window's length, small integers exact in
+    float32): rows all_slots, idx_i, idx_j, ev, free."""
+    return torch.as_tensor(np.stack([
+        np.asarray(prob[k], np.float32)
+        for k in ("all_slots", "idx_i", "idx_j", "ev", "free")]), device=dev)
+
+
+def _front_bias_prior(m: MapState, front: int):
+    """A window that starts at a chain break has no history edge on its bias
+    chain: a weak prior pins the front keyframe's biases (local index 0)."""
+    dev = m.mp_pos.device
+    info = np.zeros((15, 15), np.float32)
+    info[9:12, 9:12] = np.eye(3) / 2e-3 ** 2
+    info[12:15, 12:15] = np.eye(3) / 2e-2 ** 2
+    return ba_vi.PriorFactor(
+        cam=torch.zeros((), dtype=torch.int64, device=dev),
+        ns0=keyframe_navstate(m, front),
+        info=torch.as_tensor(info, device=dev),
+        valid=torch.ones((), dtype=torch.float32, device=dev))
+
+
 def local_ba_idp(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
                  ext: factors.Extrinsics, gw, noise: IMUNoise, prune=True, ba_Pw=4096):
     """The inverse-depth VI window BA of one event over the MapState.
@@ -222,36 +253,26 @@ def local_ba_idp(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
     prob = window_problem(st, cfg)
     if prob is None:
         return m, None
-    dev = m.mp_pos.device
-    # ONE host->device copy for the whole problem (slots, edge lists, masks;
-    # all of the padded window's length, small integers exact in float32)
-    packed = torch.as_tensor(np.stack([
-        np.asarray(prob[k], np.float32)
-        for k in ("all_slots", "idx_i", "idx_j", "ev", "free")]), device=dev)
+    packed = _pack_problem(prob, m.mp_pos.device)
     ks, idx_i, idx_j = (packed[r].to(torch.int64) for r in range(3))
-    prior = None
-    if prob["front_broken"]:
-        # a window that starts at a chain break has no history edge on its
-        # bias chain: pin the front keyframe's biases with a weak prior
-        info = np.zeros((15, 15), np.float32)
-        info[9:12, 9:12] = np.eye(3) / 2e-3 ** 2
-        info[12:15, 12:15] = np.eye(3) / 2e-2 ** 2
-        front = prob["all_slots"][0]
-        prior = ba_vi.PriorFactor(
-            cam=torch.zeros((), dtype=torch.int64, device=dev),
-            ns0=keyframe_navstate(m, front),
-            info=torch.as_tensor(info, device=dev),
-            valid=torch.ones((), dtype=torch.float32, device=dev))
+    prior = _front_bias_prior(m, prob["all_slots"][0]) if prob["front_broken"] else None
     return ba_vi_idp.window_vi_ba_map(
         m, ks, idx_i, idx_j, packed[3], prob["n_real"], packed[4], cam, ext, gw,
         noise.sigma_bg, noise.sigma_ba, prior=prior, iters=BA_ITERS, rtol=cfg.ba_rtol,
         Pw=min(ba_Pw, m.P), do_prune=prune)
 
 
-def gather_obs(m: MapState, ks, n_real) -> ba.VisualObs:
+def stereo_bf(cam: Camera, cfg: SlamConfig):
+    """fx * baseline (the reference's mbf), a 0-d tensor: the u_right row's
+    u - bf / z."""
+    return cam.fx * cfg.stereo_baseline
+
+
+def gather_obs(m: MapState, ks, n_real, with_ur=False) -> ba.VisualObs:
     """The VisualObs batch of the observation tables of keyframe slots `ks`
     (local index space, full landmark-table point indices). Rows of slots
-    past n_real (padding) carry no constraint."""
+    past n_real (padding) carry no constraint. with_ur: the keyframes'
+    u_right column (a depth sensor's map)."""
     n, Fn = ks.shape[0], m.F
     cam_idx = torch.arange(n, dtype=torch.int64, device=ks.device).repeat_interleave(Fn)
     mp = m.kf_mp[ks].reshape(-1)
@@ -261,82 +282,97 @@ def gather_obs(m: MapState, ks, n_real) -> ba.VisualObs:
         cam=cam_idx, pt=torch.clamp(mp, 0, m.P - 1).to(torch.int64),
         uv=m.kf_uv[ks].reshape(-1, 2),
         inv_sigma2=1.0 / (1.2 ** (2.0 * lvl.to(torch.float32))),
-        valid=valid.to(torch.float32))
+        valid=valid.to(torch.float32),
+        ur=m.kf_ur[ks].reshape(-1) if with_ur else None)
 
 
 def local_ba(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
              ext: factors.Extrinsics, gw, noise: IMUNoise, force_all=False,
              prune=True, ba_Pw=4096):
     """SlamSystem._local_ba: the branch follows the state. After VI init a
-    window event runs the inverse-depth BA (`local_ba_idp`); before it, the
-    visual BA over the covisibility window. force_all: the whole map, oldest
-    keyframe fixed, one round with no outlier re-classification (the
-    reference's global BA), the visual form before VI init, the XYZ VI form
-    after: up to 40 keyframes dense (`ba.visual_ba` / `ba_vi.vi_ba`, padded
-    to a multiple of 8 keyframes), above that landmark-chunked
-    (`global_ba_chunked`).
+    window event runs the inverse-depth BA (`local_ba_idp`), or with a depth
+    sensor or use_idp_ba=False the XYZ VI BA (`ba_vi.vi_ba`) over the same
+    window with the chain predecessor as a fixed vertex and the broken-chain
+    bias prior; before it, the visual BA over the covisibility window.
+    force_all: the whole map, oldest keyframe fixed, one round with no outlier
+    re-classification (the reference's global BA), the visual form before VI
+    init, the XYZ VI form after: up to 40 keyframes dense (`ba.visual_ba` /
+    `ba_vi.vi_ba`, padded to a multiple of 8 keyframes), above that
+    landmark-chunked (`global_ba_chunked`). With a depth sensor every form
+    carries the u_right rows.
     Returns (m, BAStats or None when the window has fewer than 2 keyframes);
     `overflow` is 0 (these solve over the whole landmark table)."""
+    prior = None
     if force_all:
         window = list(st.kf_slots)
         if len(window) > GBA_MAX_KF:
             # the dense Wcp would be O(Nc * Np): a whole-map BA stays O(map)
             return global_ba_chunked(m, st, cfg, cam, ext, gw, noise, window, prune=prune)
-        fixed = []
-        pad_to = int(math.ceil(len(window) / 8)) * 8
-    elif st.vi_inited:
-        if not cfg.use_idp_ba:
-            raise NotImplementedError("the XYZ form of the VI window BA (use_idp_ba=False) "
-                                      "is not ported")
+        prob = _plain_problem(st, window, [], int(math.ceil(len(window) / 8)) * 8)
+    elif st.vi_inited and cfg.use_idp_ba and not st.sensor_depth:
         return local_ba_idp(m, st, cfg, cam, ext, gw, noise, prune=prune, ba_Pw=ba_Pw)
+    elif st.vi_inited:
+        prob = window_problem(st, cfg)
+        if prob is not None and prob["front_broken"]:
+            prior = _front_bias_prior(m, prob["all_slots"][0])
     else:
         window = visual_window_slots(m, st, cfg)
         # strong edges only: a weight-1 observer must not be the gauge anchor
         fixed = [s for s in covisible_stale(m, st, st.last_kf_slot, cfg.ba_window + 6,
                                             strong=True, covis_th=cfg.covis_th)
                  if s not in window][:4]
-        pad_to = max(cfg.ba_window, cfg.local_window) + 4
-    if len(window) < 2:
+        prob = _plain_problem(st, window, fixed, max(cfg.ba_window, cfg.local_window) + 4)
+    if prob is None:
         return m, None
-    all_slots, n_real, free = _pad_window(window, fixed, pad_to)
-    n = len(all_slots)
-    idx_i, idx_j, ev = imu_edge_lists(all_slots, len(window), st.broken_chain_slots,
-                                      prev_idx=None, n_pad=n)
+    n_real = prob["n_real"]
+    n = len(prob["all_slots"])
     dev = m.mp_pos.device
-    # ONE host->device copy for the whole problem
-    rows = [all_slots, free, idx_i[:n], idx_j[:n], ev[:n]]
-    packed = torch.as_tensor(np.stack([np.asarray(r, np.float32) for r in rows]),
-                             device=dev)
-    ks, free_t = packed[0].to(torch.int64), packed[1]
-    obs = gather_obs(m, ks, n_real)
+    packed = _pack_problem(prob, dev)
+    ks, free_t = packed[0].to(torch.int64), packed[4]
+    obs = gather_obs(m, ks, n_real, with_ur=st.sensor_depth)
+    bf = stereo_bf(cam, cfg)
     pt_mask = m.mp_active.to(torch.float32)
     real = torch.arange(n, device=dev) < n_real
     ks_real = torch.where(real, ks, m.K)           # pad rows fall off the table
+    rtol = 0.0 if force_all else cfg.ba_rtol
     if st.vi_inited:
-        edges = ba_vi.edges_from_map(m.kf_preint, ks, packed[2], packed[3], packed[4],
+        edges = ba_vi.edges_from_map(m.kf_preint, ks, packed[1], packed[2], packed[3],
                                      noise.sigma_bg, noise.sigma_ba)
         ns_w = NavState(*[a[ks] for a in m.kf_ns])
         ns2, pts2, chi2, cost, costs = ba_vi.vi_ba(
-            ns_w, m.mp_pos, obs, edges, cam, ext, gw, free_t, pt_mask, prior=None,
-            iters=BA_ITERS, two_phase=False)
+            ns_w, m.mp_pos, obs, edges, cam, ext, gw, free_t, pt_mask, prior=prior,
+            iters=BA_ITERS, bf=bf, rtol=rtol, two_phase=not force_all)
         kf_ns2 = NavState(*[_set_drop(full, ks_real, w) for full, w in zip(m.kf_ns, ns2)])
     else:
         P2, R2, pts2, chi2, cost, costs = ba.visual_ba(
             m.kf_ns.P[ks], m.kf_ns.R[ks], m.mp_pos, obs, cam, ext, free_t, pt_mask,
-            iters=VISUAL_BA_ITERS, rtol=0.0 if force_all else cfg.ba_rtol,
-            two_phase=not force_all)
+            iters=VISUAL_BA_ITERS, bf=bf, rtol=rtol, two_phase=not force_all)
         kf_ns2 = m.kf_ns._replace(P=_set_drop(m.kf_ns.P, ks_real, P2),
                                   R=_set_drop(m.kf_ns.R, ks_real, R2))
     m = m._replace(kf_ns=kf_ns2, mp_pos=pts2)
     return _finish_ba(m, obs, ks_real, chi2, cost, costs, prune)
 
 
+def _plain_problem(st: MappingState, window, fixed, pad_to):
+    """The problem dict of `window_problem` for a window with no predecessor
+    vertex: the whole map, or the visual covisibility window. None when the
+    window has fewer than 2 keyframes."""
+    if len(window) < 2:
+        return None
+    all_slots, n_real, free = _pad_window(window, fixed, pad_to)
+    idx_i, idx_j, ev = imu_edge_lists(all_slots, len(window), st.broken_chain_slots,
+                                      prev_idx=None, n_pad=len(all_slots))
+    return dict(all_slots=all_slots, n_real=n_real, free=free, idx_i=idx_i, idx_j=idx_j,
+                ev=ev, front_broken=False)
+
+
 def _finish_ba(m: MapState, obs: ba.VisualObs, ks_real, chi2, cost, costs, prune):
     """The tail the XYZ BAs share: the association prune (chi2 gate at 1.5 x
-    the mono threshold; rows of pad slots fall off the table) and the stats."""
+    the row's threshold, mono or stereo; rows of pad slots fall off the
+    table) and the stats."""
     dev = m.mp_pos.device
     if prune:
-        bad = (chi2 > ba.CHI2_MONO * 1.5) & (obs.valid > 0)
+        bad = (chi2 > ba.chi2_gate(obs.ur) * 1.5) & (obs.valid > 0)
         ks = torch.clamp(ks_real, max=m.K - 1)
         kept = torch.where(bad.reshape(ks.shape[0], -1), -1, m.kf_mp[ks])
         m = m._replace(kf_mp=_set_drop(m.kf_mp, ks_real, kept))
@@ -375,14 +411,18 @@ def global_ba_chunked(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camer
     packed = torch.as_tensor(np.stack([np.asarray(r, np.float32) for r in rows]),
                              device=dev)            # one host->device copy
     ks, free_t = packed[0].to(torch.int64), packed[1]
-    obs = gather_obs(m, ks, n_real)
+    obs = gather_obs(m, ks, n_real, with_ur=st.sensor_depth)
+    bf = stereo_bf(cam, cfg)
     n_chunks = max(1, m.P // chunk)
-    flat = torch.cat([obs.cam[:, None].to(torch.float32), obs.pt[:, None].to(torch.float32),
-                      obs.uv, obs.inv_sigma2[:, None], obs.valid[:, None]],
-                     dim=1).cpu().numpy()           # one device->host copy
+    cols = [obs.cam[:, None].to(torch.float32), obs.pt[:, None].to(torch.float32),
+            obs.uv, obs.inv_sigma2[:, None], obs.valid[:, None]]
+    if obs.ur is not None:
+        cols.append(obs.ur[:, None])
+    flat = torch.cat(cols, dim=1).cpu().numpy()     # one device->host copy
     cobs, _ = ba_chunked.chunk_observations(
         flat[:, 0].astype(np.int64), flat[:, 1].astype(np.int64), flat[:, 2:4], flat[:, 4],
-        flat[:, 5], m.P, n_chunks, device=dev)
+        flat[:, 5], m.P, n_chunks, ur=flat[:, 6] if obs.ur is not None else None,
+        device=dev)
     pt_mask = m.mp_active.to(torch.float32)
     ks_real = torch.where(torch.arange(pad_n, device=dev) < n_real, ks, m.K)
     if st.vi_inited:
@@ -390,18 +430,20 @@ def global_ba_chunked(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camer
                                      noise.sigma_bg, noise.sigma_ba)
         ns_w = NavState(*[a[ks] for a in m.kf_ns])
         ns2, pts2, cost, costs = ba_chunked.vi_gba_chunked(
-            ns_w, m.mp_pos, cobs, edges, cam, ext, gw, free_t, pt_mask, iters=BA_ITERS)
+            ns_w, m.mp_pos, cobs, edges, cam, ext, gw, free_t, pt_mask, iters=BA_ITERS,
+            bf=bf)
         kf_ns2 = NavState(*[_set_drop(full, ks_real, w) for full, w in zip(m.kf_ns, ns2)])
     else:
         P2, R2, pts2, cost, costs = ba_chunked.visual_gba_chunked(
             m.kf_ns.P[ks], m.kf_ns.R[ks], m.mp_pos, cobs, cam, ext, free_t, pt_mask,
-            iters=VISUAL_BA_ITERS)
+            iters=VISUAL_BA_ITERS, bf=bf)
         kf_ns2 = m.kf_ns._replace(P=_set_drop(m.kf_ns.P, ks_real, P2),
                                   R=_set_drop(m.kf_ns.R, ks_real, R2))
     m = m._replace(kf_ns=kf_ns2, mp_pos=pts2)
     chi2 = None
     if prune:
-        # per-observation chi2 in one flat pass (no Schur structure involved)
+        # per-observation chi2 in one flat pass (no Schur structure involved;
+        # the mono rows, gated per row as the JAX package does)
         r, _, _, z = factors.reproj_xyz(cam, ext, m.kf_ns.P[ks][obs.cam],
                                         m.kf_ns.R[ks][obs.cam], m.mp_pos[obs.pt], obs.uv)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
@@ -554,7 +596,7 @@ def cull_keyframes(m: MapState, st: MappingState, cfg: SlamConfig, noise: IMUNoi
 def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState, feats,
                     uv, t_kf, fid, imu_rows, noise: IMUNoise, feat_mp=None,
                     cam_frame=False, ext: factors.Extrinsics | None = None, traj=None,
-                    detector=None):
+                    detector=None, ur=None):
     """Write a frame as a keyframe into the slot `alloc_kf_slot` gives
     (SlamSystem._insert_kf_raw): the preintegration over every IMU row since
     the last keyframe, the delta bias folded into the base bias
@@ -567,7 +609,8 @@ def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState
     converted to the body pose through `ext`. imu_rows: (T, 7) tensor of
     [gyro, acc, dt] rows, or None (the first keyframe). traj: the TrajStore,
     for an eviction at capacity. detector: the `LoopDetector` that takes the
-    keyframe's BoW histogram (None: no place recognition).
+    keyframe's BoW histogram (None: no place recognition). ur: the frame's
+    (F,) virtual right-image u (a depth sensor's; None: -1, monocular).
     Returns (m, slot); `st` is updated in place."""
     dev = m.mp_pos.device
     P, R = (cam_to_body(ext, ns.P, ns.R) if cam_frame else (ns.P, ns.R))
@@ -583,7 +626,7 @@ def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState
         torch.as_tensor(t_kf, dtype=torch.float32, device=dev),
         torch.as_tensor(fid, dtype=torch.int32, device=dev),
         uv, feats.level, feats.angle,
-        torch.full((m.F,), -1.0, dtype=torch.float32, device=dev),
+        ur if ur is not None else torch.full((m.F,), -1.0, dtype=torch.float32, device=dev),
         feats.desc, feats.desc_pm1, feats.valid, feat_mp=feat_mp, pre=pre)
     st.n_kf += 1
     st.kf_time_host[slot] = float(t_kf)
@@ -599,6 +642,102 @@ def insert_keyframe(m: MapState, st: MappingState, cfg: SlamConfig, ns: NavState
     if detector is not None:
         detector.add_keyframe(slot, feats.desc_pm1, feats.valid.to(torch.float32), kf_id=fid)
     return m, slot
+
+
+# ---------------------------------------------------------------------------
+# Landmarks from metric depth (stereo / RGB-D)
+# ---------------------------------------------------------------------------
+
+def depth_to_world(cam: Camera, ext: factors.Extrinsics, uv, feat_depth, P_b, R_b):
+    """Ideal pixel + depth -> world points under body pose (P_b, R_b)."""
+    c = torch.stack([cam.cx, cam.cy])
+    f = torch.stack([cam.fx, cam.fy])
+    xn = (uv - c) / f
+    Xc = torch.cat([xn * feat_depth[:, None], feat_depth[:, None]], dim=1)
+    Rbc = ext.Rcb.transpose(-1, -2)
+    pbc = -(Rbc @ ext.tcb[..., None])[..., 0]
+    Xb = (Rbc @ Xc[..., None])[..., 0] + pbc
+    return (R_b @ Xb[..., None])[..., 0] + P_b
+
+
+def alloc_points(m: MapState, Xw, desc, pm1, level, ref_slot: int, order_sel,
+                 n_levels: int, frame_id: int, angle=None):
+    """Write new landmarks into free map slots, in feature order
+    (SlamSystem._alloc_points).
+
+    order_sel: (F,) bool host mask of the features to add. Returns
+    (m, feat_idx, slots) with the chosen feature indices and map slots as
+    numpy arrays. The viewing normal is the unit direction from the
+    reference keyframe's body position to the point; the JAX method writes
+    Xw / dist, which is the same for a keyframe at the origin and not a unit
+    vector for a keyframe elsewhere."""
+    free_slots = np.nonzero(~m.mp_active.cpu().numpy())[0]
+    feat_idx = np.nonzero(np.asarray(order_sel))[0]
+    k = min(len(free_slots), len(feat_idx))
+    feat_idx = feat_idx[:k]
+    slots = free_slots[:k]
+    if k == 0:
+        return m, np.zeros(0, int), np.zeros(0, int)
+    dev = m.mp_pos.device
+    Xs = Xw.detach().cpu().numpy()[feat_idx]
+    P_ref = m.kf_ns.P[ref_slot].cpu().numpy()
+    dist = np.linalg.norm(Xs - P_ref, axis=1)
+    lvl = np.asarray(level.cpu().numpy())[feat_idx].astype(np.float32)
+    max_d = (dist * (1.2 ** lvl)).astype(np.float32)
+    min_d = mapping.band_min_dist(max_d, n_levels).astype(np.float32)
+    normal = ((Xs - P_ref) / np.maximum(dist, 1e-9)[:, None]).astype(np.float32)
+    sl = torch.as_tensor(slots, dtype=torch.int64, device=dev)
+    fi = torch.as_tensor(feat_idx, dtype=torch.int64, device=dev)
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    def put(field, value):
+        out = field.clone()
+        out[sl] = value
+        return out
+
+    kf_mp = m.kf_mp.clone()
+    kf_mp[ref_slot, fi] = sl.to(torch.int32)
+    m = m._replace(
+        mp_pos=put(m.mp_pos, t(Xs)),
+        mp_desc=put(m.mp_desc, desc[fi]),
+        mp_pm1=put(m.mp_pm1, pm1[fi]),
+        mp_normal=put(m.mp_normal, t(normal)),
+        mp_min_dist=put(m.mp_min_dist, t(min_d)),
+        mp_max_dist=put(m.mp_max_dist, t(max_d)),
+        mp_ref_kf=put(m.mp_ref_kf, ref_slot),
+        mp_angle=put(m.mp_angle, angle[fi]) if angle is not None else m.mp_angle,
+        mp_first_kf=put(m.mp_first_kf, frame_id),
+        mp_found=put(m.mp_found, 1.0),
+        mp_visible=put(m.mp_visible, 1.0),
+        mp_active=put(m.mp_active, True),
+        kf_mp=kf_mp,
+    )
+    return m, feat_idx, slots
+
+
+def add_depth_points(m: MapState, cfg: SlamConfig, cam: Camera, ext: factors.Extrinsics,
+                     slot: int, feats, uv, feat_depth, frame_id: int, max_new=128):
+    """A new keyframe's landmarks from depth (SlamSystem._add_depth_points,
+    Tracking::CreateNewKeyFrame's close-point insertion for stereo / RGB-D):
+    the valid features with depth that the keyframe does not associate yet,
+    nearest first, at most `max_new`. One host copy (depth, validity,
+    associations) besides `alloc_points`' own. Returns m."""
+    host = torch.stack([feat_depth.to(torch.float32), feats.valid.to(torch.float32),
+                        m.kf_mp[slot].to(torch.float32)]).cpu().numpy()
+    d_np, valid, has_mp = host[0], host[1] > 0.5, host[2] >= 0
+    cand = valid & (d_np > 1e-3) & ~has_mp
+    if cand.sum() == 0:
+        return m
+    key = np.where(cand, d_np, np.inf)
+    # numpy's default sort, as the JAX method's: equal depths (one rendered
+    # patch) then fall on the same side of the cut in both packages
+    order = np.argsort(key)[:max_new]
+    sel = np.zeros_like(cand)
+    sel[order[np.isfinite(key[order])]] = True
+    Xw = depth_to_world(cam, ext, uv, feat_depth, m.kf_ns.P[slot], m.kf_ns.R[slot])
+    m, _, _ = alloc_points(m, Xw, feats.desc, feats.desc_pm1, feats.level, slot, sel,
+                           cfg.n_levels, frame_id, angle=feats.angle)
+    return m
 
 
 def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int,

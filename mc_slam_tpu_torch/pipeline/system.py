@@ -17,15 +17,21 @@ keyframe registers its BoW histogram; a LOST system relocalizes against it
 that solves the biases again; every keyframe event past the gates ends in
 `loopctl.try_close_loop` (`enable_loop_closing`, True by default).
 
-Not ported, and loud about it: `depth=` / `img_right=` (stereo and RGB-D
-rows), the device mesh (`enable_mesh` raises), the XYZ form of the VI window
-BA (`use_idp_ba=False`), and the asynchronous frame pipeline (pair fusion,
-deferred harvest of frames, events, Sim3 batches and verifications,
-rollback).
+Depth sensors (System.h's RGBD and STEREO modes): `track(img, t, imu,
+depth=)` looks up an RGB-D map at each feature's raw pixel, `track(img, t,
+imu, img_right=)` matches a rectified right image (`frontend.stereo`). The
+first depth frame with 50 points builds a metric map at once (one keyframe
+at the origin, Tracking::StereoInitialization: no two-view RANSAC and no
+VI-init scale); from then on every pose solve and BA carries the u_right
+row, every keyframe adds its nearest unmatched depth points, and the VI
+window BA takes its XYZ form. With and without the IMU.
 
-Also here: seeding from metric depth (`_depth_to_world`, `_alloc_points`) and
-the monocular two-view bootstrap `try_initialize`
-(SlamSystem._try_initialize), as module functions of explicit state.
+Not ported, and loud about it: the device mesh (`enable_mesh` raises), and
+not ported at all: the asynchronous frame pipeline (pair fusion, deferred
+harvest of frames, events, Sim3 batches and verifications, rollback).
+
+Also here: the monocular two-view bootstrap `try_initialize`
+(SlamSystem._try_initialize), as a module function of explicit state.
 """
 from __future__ import annotations
 
@@ -37,7 +43,7 @@ import torch
 
 from mc_slam_tpu_torch.camera import Camera, undistort_points
 from mc_slam_tpu_torch.device import resolve
-from mc_slam_tpu_torch.frontend import bow, extractor, matching
+from mc_slam_tpu_torch.frontend import bow, extractor, matching, stereo
 from mc_slam_tpu_torch.geometry import init2view
 from mc_slam_tpu_torch.imu.navstate import navstate_identity
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise, euroc_noise
@@ -76,8 +82,8 @@ class SlamConfig:
     vi_init_scale_tol: float = 0.5  # |s - s_star| / s agreement of steps 2 and 3
     g_mag: float = 9.81
     use_imu: bool = False
-    # the VI window BA in its anchored inverse-depth form (LocalBAPRVIDP); the
-    # XYZ form of the window BA is not ported (False raises at the first event)
+    # the VI window BA in its anchored inverse-depth form (LocalBAPRVIDP);
+    # False, or a depth sensor, takes the XYZ form
     use_idp_ba: bool = True
     # early exit of the window-BA LM: once an accepted step improves the cost by
     # less than ba_rtol relative, the remaining iterations keep the state.
@@ -85,75 +91,9 @@ class SlamConfig:
     ba_rtol: float = 0.0
     track_rtol: float = 0.0         # the same for the per-frame pose-only LM
     refresh_stats: bool = True      # descriptors, normals, scale bands after fusion
-    stereo_baseline: float = 0.11   # metres; read by the depth modes, not ported
+    stereo_baseline: float = 0.11   # metres (EuRoC-like rig): bf = fx * baseline
     cull_min_obs: int = 3           # 3 mono, 2 for depth sensors (nThObs)
     seed: int = 0
-
-
-def _depth_to_world(cam: Camera, ext: Extrinsics, uv, feat_depth, P_b, R_b):
-    """Ideal pixel + depth -> world points under body pose (P_b, R_b)."""
-    c = torch.stack([cam.cx, cam.cy])
-    f = torch.stack([cam.fx, cam.fy])
-    xn = (uv - c) / f
-    Xc = torch.cat([xn * feat_depth[:, None], feat_depth[:, None]], dim=1)
-    Rbc = ext.Rcb.transpose(-1, -2)
-    pbc = -(Rbc @ ext.tcb[..., None])[..., 0]
-    Xb = (Rbc @ Xc[..., None])[..., 0] + pbc
-    return (R_b @ Xb[..., None])[..., 0] + P_b
-
-
-def _alloc_points(m: MapState, Xw, desc, pm1, level, ref_slot: int, order_sel,
-                  n_levels: int, frame_id: int, angle=None):
-    """Write new landmarks into free map slots, in feature order.
-
-    order_sel: (F,) bool host mask of the features to add. Returns
-    (m, feat_idx, slots) with the chosen feature indices and map slots as
-    numpy arrays. The viewing normal is the unit direction from the
-    reference keyframe's body position to the point; the JAX method writes
-    Xw / dist, which is the same for its only caller (a keyframe at the
-    origin) and not a unit vector for a keyframe elsewhere."""
-    free_slots = np.nonzero(~m.mp_active.cpu().numpy())[0]
-    feat_idx = np.nonzero(np.asarray(order_sel))[0]
-    k = min(len(free_slots), len(feat_idx))
-    feat_idx = feat_idx[:k]
-    slots = free_slots[:k]
-    if k == 0:
-        return m, np.zeros(0, int), np.zeros(0, int)
-    dev = m.mp_pos.device
-    Xs = Xw.detach().cpu().numpy()[feat_idx]
-    P_ref = m.kf_ns.P[ref_slot].cpu().numpy()
-    dist = np.linalg.norm(Xs - P_ref, axis=1)
-    lvl = np.asarray(level.cpu().numpy())[feat_idx].astype(np.float32)
-    max_d = (dist * (1.2 ** lvl)).astype(np.float32)
-    min_d = mapping.band_min_dist(max_d, n_levels).astype(np.float32)
-    normal = ((Xs - P_ref) / np.maximum(dist, 1e-9)[:, None]).astype(np.float32)
-    sl = torch.as_tensor(slots, dtype=torch.int64, device=dev)
-    fi = torch.as_tensor(feat_idx, dtype=torch.int64, device=dev)
-    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
-
-    def put(field, value):
-        out = field.clone()
-        out[sl] = value
-        return out
-
-    kf_mp = m.kf_mp.clone()
-    kf_mp[ref_slot, fi] = sl.to(torch.int32)
-    m = m._replace(
-        mp_pos=put(m.mp_pos, t(Xs)),
-        mp_desc=put(m.mp_desc, desc[fi]),
-        mp_pm1=put(m.mp_pm1, pm1[fi]),
-        mp_normal=put(m.mp_normal, t(normal)),
-        mp_min_dist=put(m.mp_min_dist, t(min_d)),
-        mp_max_dist=put(m.mp_max_dist, t(max_d)),
-        mp_ref_kf=put(m.mp_ref_kf, ref_slot),
-        mp_angle=put(m.mp_angle, angle[fi]) if angle is not None else m.mp_angle,
-        mp_first_kf=put(m.mp_first_kf, frame_id),
-        mp_found=put(m.mp_found, 1.0),
-        mp_visible=put(m.mp_visible, 1.0),
-        mp_active=put(m.mp_active, True),
-        kf_mp=kf_mp,
-    )
-    return m, feat_idx, slots
 
 
 class InitAttempt(NamedTuple):
@@ -278,7 +218,7 @@ class SlamSystem:
     `state`, `m`, `vi_inited`, `gw`, `kf_slots`, `n_kf`, `frame_id`,
     `n_lost_frames`, `events`, `timers`, `traj`, `last_ns`, `last_pose`,
     `viinit_log`, `loop`, `enable_loop_closing`, `n_loops_closed`,
-    `loop_edges`, `reloc_buf`, `reloc_window`. `st` (mapping_ctl.MappingState) and `ts`
+    `loop_edges`, `reloc_buf`, `reloc_window`, `sensor_depth`. `st` (mapping_ctl.MappingState) and `ts`
     (tracking_ctl.TrackState, None until the map is initialized) hold the
     state itself."""
 
@@ -340,6 +280,7 @@ class SlamSystem:
 
     # ---- the state, under the JAX class's names ----
     vi_inited = property(lambda self: self.st.vi_inited)
+    sensor_depth = property(lambda self: self.st.sensor_depth)
     kf_slots = property(lambda self: self.st.kf_slots)
     n_kf = property(lambda self: self.st.n_kf)
 
@@ -457,24 +398,32 @@ class SlamSystem:
     def track(self, img, t, imu=None, depth=None, img_right=None) -> bool:
         """Process one frame. img: (H, W) uint8 or float32, a host array or a
         tensor staged by `upload`; t: time in seconds; imu: (T, 7) rows
-        [gyro, acc, dt] since the previous frame. Returns whether the frame
-        was tracked (False while the map is not initialized, and when LOST).
-        A LOST system tries to relocalize on every frame, and so does the
-        frame on which tracking is lost. depth / img_right (RGB-D, stereo)
-        are not ported."""
-        if depth is not None or img_right is not None:
-            raise NotImplementedError("RGB-D and stereo input (depth=, img_right=) is not "
-                                      "ported")
+        [gyro, acc, dt] since the previous frame; depth: an (H, W) metric
+        depth map (RGB-D); img_right: the rectified right image (stereo).
+        Returns whether the frame was tracked (False while the map is not
+        initialized, and when LOST). A LOST system tries to relocalize on
+        every frame, and so does the frame on which tracking is lost."""
         cfg = self.cfg
         rows = self._imu_rows(imu)
         img = self.upload(img)
         t = float(t)
         ok = False
-        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+        depth_mode = depth is not None or img_right is not None
+        frame = fd = None
+        if depth_mode or self.state != OK or self.ts.reloc_buf is not None:
+            # off the steady state, and a depth frame, extract first
             with self.timers.stage("extract"):
                 feats = extractor.extract(img, n_features=cfg.n_feat, n_levels=cfg.n_levels)
                 uv = undistort_points(self.cam, feats.xy)
-            if self.state == NO_IMAGES_YET:
+            frame = (feats, uv)
+            if depth_mode:
+                fd = self._frame_depth(feats, uv, depth, img_right)
+                self.st.sensor_depth = True
+        if self.state in (NO_IMAGES_YET, NOT_INITIALIZED):
+            if fd is not None:
+                with self.timers.stage("initialize"):
+                    ok = self._initialize_from_depth(feats, uv, fd, t, rows)
+            elif self.state == NO_IMAGES_YET:
                 self._ref, self._init_rows = (feats, uv, t), []
                 self.state = NOT_INITIALIZED
             else:
@@ -484,23 +433,76 @@ class SlamSystem:
             # once LOST, straight to relocalization (running the trackers from
             # a garbage pose can accept on accidental inliers); while the bias
             # window is open, visual tracking against the map
-            with self.timers.stage("extract"):
-                feats = extractor.extract(img, n_features=cfg.n_feat, n_levels=cfg.n_levels)
-                uv = undistort_points(self.cam, feats.xy)
             self._keep_rows(rows)
             if self.state == LOST:
-                ok = self._relocalize(feats, uv, t)
+                ok = self._relocalize(feats, uv, t, fd)
                 if not ok:
                     self._note_lost(dict(mode="lost", n_in=0, reloc=self.ts.reloc_diag))
             else:
                 with self.timers.stage("track"):
-                    ok = self._track_reloc_window(feats, uv, t)
+                    ok = self._track_reloc_window(feats, uv, t, fd)
         else:
             with self.timers.stage("track"):
-                ok = self._track_frame(img, t, rows)
+                ok = self._track_frame(img, t, rows, frame, fd)
         self.last_time = t
         self.frame_id += 1
         return ok
+
+    def _frame_depth(self, feats, uv, depth, img_right) -> tracking_ctl.FrameDepth:
+        """The depth sensor's per-feature data (SlamSystem._feature_depth and
+        _cur_ur): metric depth from an RGB-D map, looked up at each feature's
+        RAW pixel (truncated to int, clipped to the image), or from a
+        rectified right image (extracted as the left one, stereo-matched;
+        only points closer than 35 baselines, the reference's mThDepth);
+        -1 where there is none. Then the virtual right-image u = u - bf / z."""
+        cfg = self.cfg
+        if depth is not None:
+            dm = torch.as_tensor(np.asarray(depth, np.float32), device=self.device) \
+                if not isinstance(depth, torch.Tensor) else depth.to(self.device, torch.float32)
+            xs = torch.clamp(feats.xy[:, 0].to(torch.int64), 0, dm.shape[1] - 1)
+            ys = torch.clamp(feats.xy[:, 1].to(torch.int64), 0, dm.shape[0] - 1)
+            d = dm[ys, xs]
+            d = torch.where(d > 1e-3, d, -1.0)
+        else:
+            with self.timers.stage("stereo"):
+                fR = extractor.extract(self.upload(img_right), n_features=cfg.n_feat,
+                                       n_levels=cfg.n_levels)
+                uvR = undistort_points(self.cam, fR.xy)
+                d, _ = stereo.stereo_depth(uv, feats.desc_pm1, feats.valid, uvR, fR.desc_pm1,
+                                           fR.valid, self.cam.fx, cfg.stereo_baseline)
+                d = torch.where(d < 35.0 * cfg.stereo_baseline, d, -1.0)
+        bf = mapping_ctl.stereo_bf(self.cam, cfg)
+        ur = torch.where(d > 1e-3, uv[:, 0] - bf / torch.clamp(d, min=1e-6), -1.0)
+        return tracking_ctl.FrameDepth(depth=d, ur=ur, bf=bf)
+
+    def _initialize_from_depth(self, feats, uv, fd, t, rows):
+        """Tracking::StereoInitialization: with at least 50 valid features
+        with depth, this frame becomes keyframe 0 at the origin (its u_right
+        table, the IMU rows since the first frame) with those features'
+        points, and tracking starts at once (state OK). One host read."""
+        cfg = self.cfg
+        if rows is not None:
+            self._init_rows.append(rows)
+        good = (feats.valid & (fd.depth > 1e-3)).cpu().numpy()
+        if good.sum() < 50:
+            return False
+        imu_rows = torch.cat(self._init_rows) if self._init_rows else None
+        ns0 = navstate_identity(device=self.device)
+        self.m, slot = mapping_ctl.insert_keyframe(self.m, self.st, cfg, ns0, feats, uv, t,
+                                                   self.frame_id, imu_rows, self.noise,
+                                                   detector=self.loop, ur=fd.ur)
+        Xw = mapping_ctl.depth_to_world(self.cam, self.ext, uv, fd.depth, ns0.P, ns0.R)
+        self.m, _, _ = mapping_ctl.alloc_points(self.m, Xw, feats.desc, feats.desc_pm1,
+                                                feats.level, slot, good, cfg.n_levels,
+                                                self.frame_id, angle=feats.angle)
+        self._ref, self._init_rows = None, []
+        self.ts = tracking_ctl.start_tracking(self.m, self.st, cfg.g_mag, t, traj=self.traj)
+        self.ts.n_inliers = int(good.sum())
+        self.traj.append(tracking._traj_row(self.m, self.ts.P, self.ts.R, slot), t, slot,
+                         self.st.kf_id_host[slot])
+        self.state = OK
+        self.events.append((self.frame_id, "init", dict(n_points=int(good.sum()))))
+        return True
 
     def _note_lost(self, detail):
         self.n_lost_frames += 1
@@ -531,13 +533,14 @@ class SlamSystem:
         self.events.append((self.frame_id, "init", dict(n_matches=att.n_matches)))
         return True
 
-    def _track_frame(self, img, t, rows):
+    def _track_frame(self, img, t, rows, frame=None, fd=None):
         """One frame in state OK: the visual or the VI frame program and the
-        decisions on its summary (tracking_ctl.track_visual / track_vi)."""
+        decisions on its summary (tracking_ctl.track_visual / track_vi);
+        frame / fd: a depth frame's (feats, uv) and FrameDepth."""
         cfg, st = self.cfg, self.st
         ev_mark = self._marks("lm_", self.event_probe)
         kw = dict(event_timer=ev_mark, allow_kf=not self.localization_only,
-                  event_kw=self.event_kw, loop=self._loopctx)
+                  event_kw=self.event_kw, loop=self._loopctx, frame=frame, depth=fd)
         if st.vi_inited:
             self.m, out = tracking_ctl.track_vi(
                 self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
@@ -551,7 +554,7 @@ class SlamSystem:
         if out.state == LOST:
             self.state = LOST
             # the frame that was lost tries to relocalize at once
-            if self._relocalize(out.feats, out.uv, t):
+            if self._relocalize(out.feats, out.uv, t, fd):
                 return True
             self._note_lost(dict(mode="vi" if st.vi_inited else "vis", n_in=out.n_inliers))
             return False
@@ -572,7 +575,7 @@ class SlamSystem:
             self.ts.imu_since_kf.append(rows)
             self.ts.imu_since_frame.append(rows)
 
-    def _after_sync_frame(self, feats, uv, t, feat_mp, n_in, mode, used_fb=False):
+    def _after_sync_frame(self, feats, uv, t, feat_mp, n_in, mode, used_fb=False, fd=None):
         """The tail of a frame tracked off the steady state (relocalized, or
         inside the bias window): its trajectory row and the keyframe decision
         (-> event -> loop closing); never a keyframe while the window is open."""
@@ -583,7 +586,7 @@ class SlamSystem:
         self.m, slot, event, closed = tracking_ctl._keyframe_tail(
             self.m, st, self.cfg, ts, feats, uv, t, self.frame_id, feat_mp, n_in, self.cam,
             self.ext, self.noise, self._marks("lm_", self.event_probe),
-            not self.localization_only, self.event_kw, self._loopctx)
+            not self.localization_only, self.event_kw, self._loopctx, fd)
         self.m, vi = tracking_ctl.vi_init_tail(
             self.m, st, self.cfg, ts, t, self.cam, self.ext, self.noise,
             self._marks("vi_", self.vi_probe), self.viinit_log)
@@ -591,8 +594,10 @@ class SlamSystem:
                                                       loop=closed, mode=mode)
         self._note_event(self.last_outcome)
 
-    def _relocalize(self, feats, uv, t):
-        """One relocalization attempt on this frame's features."""
+    def _relocalize(self, feats, uv, t, fd=None):
+        """One relocalization attempt on this frame's features (the refinement
+        is monocular, as the JAX package's; a depth frame's u_right rows join
+        at its keyframe decision)."""
         with self.timers.stage("relocalize"):
             hit = tracking_ctl.relocalize(self.m, self.st, self.cfg, self.ts, self.loop, feats,
                                           uv, t, self.cam, self.ext, generator=self._gen)
@@ -600,23 +605,24 @@ class SlamSystem:
             return False
         self.state = OK
         self.events.append((self.frame_id, "reloc", dict(kf=hit["kf"], n_in=hit["n_in"])))
-        self._after_sync_frame(feats, uv, t, hit["feat_mp"], hit["n_in"], "reloc")
+        self._after_sync_frame(feats, uv, t, hit["feat_mp"], hit["n_in"], "reloc", fd=fd)
         return True
 
-    def _track_reloc_window(self, feats, uv, t):
+    def _track_reloc_window(self, feats, uv, t, fd=None):
         """One frame of the bias window after a relocalization."""
         ok, n_in, used_fb = tracking_ctl.track_frame_reloc_window(
             self.m, self.st, self.cfg, self.ts, feats, uv, t, self.cam, self.ext, self.noise,
-            reloc_window=self.reloc_window)
+            reloc_window=self.reloc_window, depth=fd)
         if not ok:
             self.state = LOST
             self.last_outcome = tracking_ctl.FrameOutcome(LOST, n_in, used_fb, None, None, None,
                                                           mode="reloc_window")
-            if self._relocalize(feats, uv, t):
+            if self._relocalize(feats, uv, t, fd):
                 return True
             self._note_lost(dict(mode="reloc_window", n_in=n_in))
             return False
-        self._after_sync_frame(feats, uv, t, self.ts.prev_feat_mp, n_in, "reloc_window", used_fb)
+        self._after_sync_frame(feats, uv, t, self.ts.prev_feat_mp, n_in, "reloc_window", used_fb,
+                               fd)
         return True
 
     def _marks(self, prefix, probe):

@@ -4,7 +4,11 @@ Map-point projection search + pose optimization (TrackWithMotionModel /
 TrackLocalMap and the IMU variants, src/Tracking.cpp:224-412), fused into two
 search -> optimize rounds against the whole active map, and the per-frame VI
 program `frame_pipeline_vi` (extract, undistort, preintegrate, track, 40 px
-visual fallback, trajectory row).
+visual fallback, trajectory row). With a depth sensor (stereo / RGB-D) the
+frame's virtual right-image u (`feat_ur`, -1 where a feature has no depth)
+adds the u_right row to the pose solves (bf = fx * baseline) and the inlier
+gate takes CHI2_STEREO on those rows; the frame programs then take features
+extracted by the caller (`frame`), because the depth lookup needs them first.
 
 Differences of form from the JAX package, none of semantics:
 * `.at[...].set(..., mode="drop")` scatters write into a buffer with one
@@ -104,9 +108,10 @@ def _seen_mask(m: MapState, feat_mp):
 
 
 def _search(m, feats, uv_ideal, cam, ext, P, R, radius, inv_sigma2,
-            mp_last_angle, mp_seen_last):
+            mp_last_angle, mp_seen_last, feat_ur=None):
     """One projection search against the active map; returns the pose-only
-    observation table, feat_mp and the matched mask."""
+    observation table (with the u_right column `feat_ur`), feat_mp and the
+    matched mask."""
     Fn = feats.valid.shape[0]
     proj_uv, _, vis = project_map_points(m, cam, ext, P, R)
     lvl = predict_level(m, P)
@@ -120,7 +125,7 @@ def _search(m, feats, uv_ideal, cam, ext, P, R, radius, inv_sigma2,
     obs = VisualObs(cam=torch.zeros(Fn, dtype=torch.int64, device=uv_ideal.device),
                     pt=torch.clamp(feat_mp, 0, m.P - 1).to(torch.int64),
                     uv=uv_ideal, inv_sigma2=inv_sigma2,
-                    valid=matched.to(torch.float32))
+                    valid=matched.to(torch.float32), ur=feat_ur)
     return obs, feat_mp, matched
 
 
@@ -130,9 +135,11 @@ def _level_info(feats: Features):
 
 def track_frame_visual(m: MapState, feats: Features, uv_ideal, cam: Camera,
                        ext: factors.Extrinsics, P0, R0, radius_coarse=15.0,
-                       radius_fine=4.0, iters: int = 20, rtol: float = 0.0,
-                       prev_feat_mp=None, prev_angle=None) -> TrackResult:
-    """Two-round project -> match -> optimize against the active map."""
+                       radius_fine=4.0, iters: int = 20, feat_ur=None, bf=0.0,
+                       rtol: float = 0.0, prev_feat_mp=None, prev_angle=None) -> TrackResult:
+    """Two-round project -> match -> optimize against the active map.
+    feat_ur: optional (F,) observed virtual right-image u (stereo / RGB-D;
+    < 0: no depth), the u_right row of the pose solve (bf = fx * baseline)."""
     inv_sigma2 = _level_info(feats)
     if prev_feat_mp is not None:
         mp_last_angle, mp_seen_last = last_frame_angles(m, prev_feat_mp, prev_angle)
@@ -141,10 +148,10 @@ def track_frame_visual(m: MapState, feats: Features, uv_ideal, cam: Camera,
 
     def one_round(P, R, radius):
         obs, feat_mp, matched = _search(m, feats, uv_ideal, cam, ext, P, R, radius,
-                                        inv_sigma2, mp_last_angle, mp_seen_last)
+                                        inv_sigma2, mp_last_angle, mp_seen_last, feat_ur)
         Pn, Rn, chi2, n_in = ba.pose_only_visual(P, R, m.mp_pos, obs, cam, ext,
-                                                 iters=iters, rtol=rtol)
-        inlier = matched & (chi2 <= ba.CHI2_MONO)
+                                                 iters=iters, bf=bf, rtol=rtol)
+        inlier = matched & (chi2 <= ba.chi2_gate(feat_ur))
         return Pn, Rn, torch.where(inlier, feat_mp, -1), torch.sum(matched), n_in
 
     P1, R1, _, _, _ = one_round(P0, R0, radius_coarse)
@@ -154,14 +161,14 @@ def track_frame_visual(m: MapState, feats: Features, uv_ideal, cam: Camera,
 
 def track_frame_visual_step(m: MapState, feats: Features, uv_ideal, cam: Camera,
                             ext: factors.Extrinsics, P_last, R_last, dP, dR,
-                            iters: int = 20, rtol: float = 0.0,
+                            iters: int = 20, feat_ur=None, bf=0.0, rtol: float = 0.0,
                             prev_feat_mp=None, prev_angle=None):
     """Velocity-model prediction + track_frame_visual + velocity update +
     found/visible counters. Returns (res, (dP', dR'), mp_found, mp_visible)."""
     P0 = P_last + _mv(R_last, dP)
     R0 = R_last @ dR
     res = track_frame_visual(m, feats, uv_ideal, cam, ext, P0, R0, iters=iters,
-                             rtol=rtol, prev_feat_mp=prev_feat_mp,
+                             feat_ur=feat_ur, bf=bf, rtol=rtol, prev_feat_mp=prev_feat_mp,
                              prev_angle=prev_angle)
     RlT = R_last.transpose(-1, -2)
     vel = (_mv(RlT, res.P - P_last), RlT @ res.R)
@@ -173,7 +180,8 @@ def track_frame_vi(m: MapState, feats: Features, uv_ideal, cam: Camera,
                    ext: factors.Extrinsics, ns_cur0, ns_last, pre_last_cur, gw,
                    prior_last: ba_vi.PriorFactor, radius_coarse=15.0,
                    radius_fine=4.0, iters: int = 20, sigma_bg=2e-5, sigma_ba=5e-3,
-                   rtol: float = 0.0, prev_feat_mp=None, prev_angle=None):
+                   feat_ur=None, bf=0.0, rtol: float = 0.0, prev_feat_mp=None,
+                   prev_angle=None):
     """VI tracking: IMU-predicted pose, projection search, joint (last, cur)
     optimization with IMU + prior factors, marginal extraction
     (TrackWithIMU + TrackLocalMapWithIMU, src/Tracking.cpp:224-412).
@@ -187,17 +195,17 @@ def track_frame_vi(m: MapState, feats: Features, uv_ideal, cam: Camera,
         mp_last_angle = mp_seen_last = None
 
     obs1, _, _ = _search(m, feats, uv_ideal, cam, ext, ns_cur0.P, ns_cur0.R,
-                         radius_coarse, inv_sigma2, mp_last_angle, mp_seen_last)
+                         radius_coarse, inv_sigma2, mp_last_angle, mp_seen_last, feat_ur)
     ns1, _, _, _ = ba_vi.pose_only_vi(
         ns_cur0, ns_last, pre_last_cur, m.mp_pos, obs1, cam, ext, gw, prior_last,
-        info_prv, info_bias, iters=iters, compute_marg=False, rtol=rtol)
+        info_prv, info_bias, iters=iters, compute_marg=False, bf=bf, rtol=rtol)
     obs2, feat_mp, matched = _search(m, feats, uv_ideal, cam, ext, ns1.P, ns1.R,
                                      radius_fine, inv_sigma2, mp_last_angle,
-                                     mp_seen_last)
+                                     mp_seen_last, feat_ur)
     ns2, chi2, n_in, H_marg = ba_vi.pose_only_vi(
         ns1, ns_last, pre_last_cur, m.mp_pos, obs2, cam, ext, gw, prior_last,
-        info_prv, info_bias, iters=iters, compute_marg=True, rtol=rtol)
-    inlier = matched & (chi2 <= ba.CHI2_MONO)
+        info_prv, info_bias, iters=iters, compute_marg=True, bf=bf, rtol=rtol)
+    inlier = matched & (chi2 <= ba.chi2_gate(feat_ur))
     return ns2, torch.where(inlier, feat_mp, -1), torch.sum(matched), n_in, H_marg
 
 
@@ -254,21 +262,30 @@ def _bias_jump(ns2, ns_last):
             | (torch.amax(torch.abs(ns2.dba - ns_last.dba)) > 0.5))
 
 
+def _extracted(img, cam, frame, n_features, n_levels):
+    """(feats, uv) of the frame: `frame` when the caller extracted it, else
+    ORB extraction of `img` and undistortion."""
+    if frame is not None:
+        return frame
+    feats = extractor.extract(img, n_features=n_features, n_levels=n_levels)
+    return feats, undistort_points(cam, feats.xy)
+
+
 def _vi_frame_body(m: MapState, img, rawp, cam, ext, noise, ns_last, gw,
                    prior_last, pfm, pan, anchor_slot, dt_f, fresh_prior_fb,
                    sigma_bg, sigma_ba, n_features, n_levels, iters, rtol,
-                   fb_min_inliers):
+                   fb_min_inliers, frame=None, feat_ur=None, bf=0.0):
     """One VI frame: ORB extraction, undistortion, IMU prediction,
-    track_frame_vi, and the wide-window visual fallback.
+    track_frame_vi, and the wide-window visual fallback (mono rows only, as
+    the JAX package's).
     Returns (feats, uv, ns_f, fmp_f, Hp_f, fv, traj, summary_row)."""
-    feats = extractor.extract(img, n_features=n_features, n_levels=n_levels)
-    uv = undistort_points(cam, feats.xy)
+    feats, uv = _extracted(img, cam, frame, n_features, n_levels)
     pre_last_cur = preintegrate(rawp, ns_last.bg_full, ns_last.ba_full, noise)
     ns_cur0 = predict_navstate(ns_last, pre_last_cur, gw)
     ns2, feat_mp, n_m, n_in, H_marg = track_frame_vi(
         m, feats, uv, cam, ext, ns_cur0, ns_last, pre_last_cur, gw, prior_last,
-        iters=iters, sigma_bg=sigma_bg, sigma_ba=sigma_ba, rtol=rtol,
-        prev_feat_mp=pfm, prev_angle=pan)
+        iters=iters, sigma_bg=sigma_bg, sigma_ba=sigma_ba, feat_ur=feat_ur, bf=bf,
+        rtol=rtol, prev_feat_mp=pfm, prev_angle=pan)
     bias_jump = _bias_jump(ns2, ns_last)
     H_prior = 0.5 * (H_marg + H_marg.T) + 1e-3 * torch.eye(
         15, dtype=H_marg.dtype, device=H_marg.device)
@@ -300,11 +317,12 @@ def frame_pipeline_vi(m: MapState, img, rawp, cam: Camera, ext: factors.Extrinsi
                       prev_feat_mp, prev_angle, anchor_slot, dt_f, fresh_prior_fb,
                       sigma_bg=2e-5, sigma_ba=5e-3, n_features=1024, n_levels=8,
                       iters: int = 20, rtol: float = 0.0, has_prev: bool = True,
-                      fb_min_inliers=20):
+                      fb_min_inliers=20, frame=None, feat_ur=None, bf=0.0):
     """One VI frame (see _vi_frame_body). rawp: (T, 7) [gyro, acc, dt] rows
     since the last frame; pass the real rows (zero-dt padding rows are no-ops
     that only cost time). fresh_prior_fb: (15, 15) prior info used when the
-    fallback is taken.
+    fallback is taken. frame: (feats, uv) extracted by the caller (img is
+    then not read); feat_ur / bf: the depth sensor's u_right rows.
 
     Returns (feats, uv, ns2, feat_mp, H_prior, mp_found, mp_vis,
     traj (P_rel, R_rel, P_abs, R_abs), summary [n_in, bias_jump, used_fb,
@@ -314,7 +332,7 @@ def frame_pipeline_vi(m: MapState, img, rawp, cam: Camera, ext: factors.Extrinsi
     feats, uv, ns_f, fmp_f, Hp_f, fv, traj, summary = _vi_frame_body(
         m, img, rawp, cam, ext, noise, ns_last, gw, prior_last, pfm, pan,
         anchor_slot, dt_f, fresh_prior_fb, sigma_bg, sigma_ba, n_features,
-        n_levels, iters, rtol, fb_min_inliers)
+        n_levels, iters, rtol, fb_min_inliers, frame, feat_ur, bf)
     return (feats, uv, ns_f, fmp_f, Hp_f, m.mp_found + fv, m.mp_visible + fv,
             traj, summary)
 
@@ -323,24 +341,25 @@ def frame_pipeline_visual(m: MapState, img, cam: Camera, ext: factors.Extrinsics
                           P_last, R_last, dP, dR, prev_feat_mp, prev_angle,
                           anchor_slot, min_inliers, n_features=1024, n_levels=8,
                           iters: int = 20, rtol: float = 0.0,
-                          has_prev: bool = True):
+                          has_prev: bool = True, frame=None, feat_ur=None, bf=0.0):
     """One visual frame: extraction, undistortion, velocity-model tracking
     and the wide-window retry from the last pose (one host sync on its flag).
+    frame: (feats, uv) extracted by the caller (img is then not read);
+    feat_ur / bf: the depth sensor's u_right rows, in both attempts.
 
     Returns (feats, uv, res, vel (dP, dR), mp_found, mp_vis, traj,
     summary [n_in, used_fb, n_matches])."""
-    feats = extractor.extract(img, n_features=n_features, n_levels=n_levels)
-    uv = undistort_points(cam, feats.xy)
+    feats, uv = _extracted(img, cam, frame, n_features, n_levels)
     pfm = prev_feat_mp if has_prev else None
     pan = prev_angle if has_prev else None
     res, vel, _, _ = track_frame_visual_step(
-        m, feats, uv, cam, ext, P_last, R_last, dP, dR, iters=iters, rtol=rtol,
-        prev_feat_mp=pfm, prev_angle=pan)
+        m, feats, uv, cam, ext, P_last, R_last, dP, dR, iters=iters, feat_ur=feat_ur,
+        bf=bf, rtol=rtol, prev_feat_mp=pfm, prev_angle=pan)
     res_f, vel_f = res, vel
     used_fb = torch.zeros((), dtype=torch.bool, device=uv.device)
     if bool(res.n_inliers < min_inliers):
         r2 = track_frame_visual(m, feats, uv, cam, ext, P_last, R_last,
-                                radius_coarse=40.0, iters=iters)
+                                radius_coarse=40.0, iters=iters, feat_ur=feat_ur, bf=bf)
         take = r2.n_inliers > res.n_inliers
         res_f = TrackResult(*[torch.where(take, a, b) for a, b in zip(r2, res)])
         RlT = R_last.transpose(-1, -2)

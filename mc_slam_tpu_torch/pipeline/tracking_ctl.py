@@ -9,6 +9,14 @@ frames after a relocalization over which the biases are solved again
 (`track_frame_reloc_window`, `recompute_bias_from_window`). Module functions
 over an explicit `TrackState` and the `MappingState` of mapping_ctl; the
 orchestrator class (pipeline/system.py) holds both and calls these per frame.
+
+A depth frame (stereo / RGB-D, `FrameDepth`) is extracted before it is
+tracked, because the depth lookup needs its features: the trackers take the
+extracted (feats, uv) as `frame` and run the same decisions; the frame's
+u_right rows reach every pose solve the JAX package hands them to (the
+visual step and its 40 px retry, the VI step, the reference-keyframe
+fallback, the bias window), and a keyframe it becomes gets its u_right table
+and its depth points (`mapping_ctl.add_depth_points`).
 """
 from __future__ import annotations
 
@@ -97,6 +105,17 @@ class TrackState:
     reloc_diag: dict | None = None
 
 
+class FrameDepth(NamedTuple):
+    """A depth sensor's per-feature data of one frame."""
+    depth: torch.Tensor         # (F,) metric depth, -1 where a feature has none
+    ur: torch.Tensor            # (F,) virtual right-image u (u - bf / depth), -1 where none
+    bf: torch.Tensor            # () fx * baseline
+
+
+def _ur_bf(depth: FrameDepth | None):
+    return (None, 0.0) if depth is None else (depth.ur, depth.bf)
+
+
 class FrameOutcome(NamedTuple):
     state: int                      # pipebase.OK or LOST
     n_inliers: int
@@ -154,15 +173,16 @@ def need_new_kf(m: MapState, st: mapping_ctl.MappingState,
 
 def create_keyframe(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
                     ts: TrackState, feats, uv, t, fid: int, feat_mp, noise: IMUNoise,
-                    detector=None):
+                    detector=None, ur=None):
     """The tracked frame becomes a keyframe: its pose (its NavState after VI
     init), THIS frame's tracked associations, the IMU rows since the last
-    keyframe. Returns (m, slot)."""
+    keyframe, its u_right table (`ur`, a depth frame's). Returns (m, slot)."""
     dev = m.mp_pos.device
     ns = ts.ns if st.vi_inited else navstate_identity(device=dev)._replace(P=ts.P, R=ts.R)
     rows = torch.cat(ts.imu_since_kf) if ts.imu_since_kf else None
     m, slot = mapping_ctl.insert_keyframe(m, st, cfg, ns, feats, uv, t, fid, rows, noise,
-                                          feat_mp=feat_mp, traj=ts.traj, detector=detector)
+                                          feat_mp=feat_mp, traj=ts.traj, detector=detector,
+                                          ur=ur)
     ts.imu_since_kf = []
     return m, slot
 
@@ -199,14 +219,18 @@ def _event(m, st, cfg, ts, fid, cam, ext, noise, event_timer, event_kw, loop=Non
 
 
 def _keyframe_tail(m, st, cfg, ts, feats, uv, t, fid, feat_mp, n_in, cam, ext, noise,
-                   event_timer, allow_kf, event_kw, loop):
+                   event_timer, allow_kf, event_kw, loop, depth=None):
     """The keyframe decision every tracked frame ends in: when `need_new_kf`
-    says so the frame becomes a keyframe and runs its event.
+    says so the frame becomes a keyframe (with a depth frame's u_right table
+    and depth points) and runs its event.
     Returns (m, slot or None, EventResult or None, LoopOutcome or None)."""
     if not (allow_kf and need_new_kf(m, st, cfg, fid, n_in, ts.reloc_buf is not None)):
         return m, None, None, None
     m, slot = create_keyframe(m, st, cfg, ts, feats, uv, t, fid, feat_mp, noise,
-                              detector=loop.detector if loop is not None else None)
+                              detector=loop.detector if loop is not None else None,
+                              ur=None if depth is None else depth.ur)
+    if depth is not None:
+        m = mapping_ctl.add_depth_points(m, cfg, cam, ext, slot, feats, uv, depth.depth, fid)
     m, event, closed = _event(m, st, cfg, ts, fid, cam, ext, noise, event_timer,
                               event_kw or {}, loop)
     return m, slot, event, closed
@@ -231,7 +255,8 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
                  cfg: SlamConfig, ts: TrackState, img, t, fid: int,
                  imu_rows, cam: Camera, ext: factors.Extrinsics, noise: IMUNoise,
                  iters: int = 20, event_timer=None, vi_mark=None, vi_log=None,
-                 allow_kf=True, event_kw=None, loop=None, generator=None):
+                 allow_kf=True, event_kw=None, loop=None, generator=None, frame=None,
+                 depth: FrameDepth | None = None):
     """One frame before VI initialization: `tracking.frame_pipeline_visual`,
     then the decisions of `_harvest_one` on its summary (one host read):
     below min_track_inliers the reference-keyframe fallback
@@ -247,17 +272,21 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
     `mapping_ctl.keyframe_event` (max_new, ba_Pw); vi_mark / vi_log: the stage
     marks and the diagnostic log of `viinit_ctl.maybe_vi_init`; loop: the
     `loopctl.LoopContext` (None: no histograms, no loop closing); generator:
-    the RANSAC stream of the fallback. Returns (m, FrameOutcome); a LOST
-    outcome carries the frame's features for the relocalization attempt.
-    `ts` and `st` are updated in place."""
+    the RANSAC stream of the fallback; frame: the (feats, uv) of a frame the
+    caller extracted (img is then not read); depth: a depth frame's
+    `FrameDepth`. Returns (m, FrameOutcome); a LOST outcome carries the
+    frame's features for the relocalization attempt. `ts` and `st` are
+    updated in place."""
     if imu_rows is not None and imu_rows.shape[0]:
         ts.imu_since_kf.append(imu_rows)
     anchor = st.last_kf_slot
+    ur, bf = _ur_bf(depth)
     (feats, uv, res, vel, mp_found, mp_vis, traj_row,
      summary) = tracking.frame_pipeline_visual(
         m, img, cam, ext, ts.P, ts.R, ts.dP, ts.dR, ts.prev_feat_mp, ts.prev_angle,
         anchor, cfg.min_track_inliers, n_features=cfg.n_feat, n_levels=cfg.n_levels,
-        iters=iters, rtol=cfg.track_rtol, has_prev=ts.has_prev)
+        iters=iters, rtol=cfg.track_rtol, has_prev=ts.has_prev, frame=frame, feat_ur=ur,
+        bf=bf)
     s = summary.cpu().numpy()
     n_in, used_fb = int(s[0]), bool(s[1])
     mode = ""
@@ -265,7 +294,7 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
         # no motion prior left: against the reference keyframe
         # (TrackReferenceKeyFrame, src/Tracking.cpp:1524)
         res2, n2 = track_reference_kf(m, st, cfg, feats, uv, cam, ext, generator=generator,
-                                      iters=iters)
+                                      iters=iters, depth=depth)
         if res2 is None:
             ts.state, ts.has_prev = LOST, False
             return m, FrameOutcome(LOST, n_in, used_fb, None, None, None, feats, uv)
@@ -283,7 +312,7 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
     ts.traj.append(traj_row, t, anchor, st.kf_id_host.get(anchor, -1))
     m, slot, event, closed = _keyframe_tail(
         m, st, cfg, ts, feats, uv, t, fid, res.feat_mp, n_in, cam, ext, noise, event_timer,
-        allow_kf, event_kw, loop)
+        allow_kf, event_kw, loop, depth)
     m, vi = vi_init_tail(m, st, cfg, ts, t, cam, ext, noise, vi_mark, vi_log)
     return m, FrameOutcome(OK, n_in, used_fb, slot, event, vi, loop=closed, mode=mode)
 
@@ -292,15 +321,16 @@ def track_vi(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
              ts: TrackState, img, t, fid: int, imu_rows, cam: Camera,
              ext: factors.Extrinsics, noise: IMUNoise, consts: FrameConstants,
              iters: int = 20, fb_min_inliers=20, event_timer=None, allow_kf=True,
-             event_kw=None, loop=None):
+             event_kw=None, loop=None, frame=None, depth: FrameDepth | None = None):
     """One frame after VI initialization: `tracking.frame_pipeline_vi` from
     the last NavState over the IMU rows since it, then the decisions of
     `_harvest_one`: LOST below max(6, min_track_inliers // 2) inliers, else
     the state carry (this frame's marginal as the next prior), the
     trajectory row and keyframe -> event (-> loop closing, with `loop`, a
     `loopctl.LoopContext`). consts: `frame_constants` of the system's width,
-    staged once. Returns (m, FrameOutcome); a LOST outcome carries the frame's
-    features for the relocalization attempt."""
+    staged once. frame / depth: as in `track_visual`. Returns (m,
+    FrameOutcome); a LOST outcome carries the frame's features for the
+    relocalization attempt."""
     dev = m.mp_pos.device
     if imu_rows is not None and imu_rows.shape[0]:
         ts.imu_since_kf.append(imu_rows)
@@ -311,13 +341,14 @@ def track_vi(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
         ts.prior = ba_vi.PriorFactor(cam=consts.c0, ns0=ts.ns, valid=consts.c1,
                                      info=consts.prior_fresh)
     anchor = st.last_kf_slot
+    ur, bf = _ur_bf(depth)
     (feats, uv, ns, fmp, H_prior, mp_found, mp_vis, traj_row,
      summary) = tracking.frame_pipeline_vi(
         m, img, rawp, cam, ext, noise, ts.ns, ts.gw, ts.prior, ts.prev_feat_mp,
         ts.prev_angle, anchor, max(t - ts.last_time, 1e-3), consts.fresh_fb,
         sigma_bg=consts.sigma_bg, sigma_ba=consts.sigma_ba,
         n_features=cfg.n_feat, n_levels=cfg.n_levels, iters=iters, rtol=cfg.track_rtol,
-        has_prev=ts.has_prev, fb_min_inliers=fb_min_inliers)
+        has_prev=ts.has_prev, fb_min_inliers=fb_min_inliers, frame=frame, feat_ur=ur, bf=bf)
     s = summary.cpu().numpy()
     n_in, used_fb = int(s[0]), bool(s[2])
     if n_in < max(6, cfg.min_track_inliers // 2):
@@ -332,7 +363,7 @@ def track_vi(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
     ts.traj.append(traj_row, t, anchor, st.kf_id_host.get(anchor, -1))
     m, slot, event, closed = _keyframe_tail(
         m, st, cfg, ts, feats, uv, t, fid, fmp, n_in, cam, ext, noise, event_timer,
-        allow_kf, event_kw, loop)
+        allow_kf, event_kw, loop, depth)
     return m, FrameOutcome(OK, n_in, used_fb, slot, event, None, loop=closed)
 
 
@@ -353,12 +384,13 @@ def _pnp_to_body(ext: factors.Extrinsics, R_cw, t_cw):
 
 def track_reference_kf(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig, feats,
                        uv, cam: Camera, ext: factors.Extrinsics, generator=None, idx=None,
-                       iters: int = 20):
+                       iters: int = 20, depth: FrameDepth | None = None):
     """TrackReferenceKeyFrame (src/Tracking.cpp:1524): with no usable motion
     prior, the frame's descriptors are matched against the last keyframe's
     landmark features, PnP RANSAC gives a pose, and the map is searched from
-    it (15 px). idx: (n, 6) PnP sample indices (tracking.PNP_ITERS of them drawn
-    from `generator` when None). Two host reads: [matches, PnP ok], then the inliers.
+    it (15 px; a depth frame's u_right rows in the pose solve). idx: (n, 6)
+    PnP sample indices (tracking.PNP_ITERS of them drawn from `generator`
+    when None). Two host reads: [matches, PnP ok], then the inliers.
     Returns (TrackResult, inliers) or (None, 0)."""
     k = st.last_kf_slot
     if k is None or k not in st.kf_slots:
@@ -377,8 +409,9 @@ def track_reference_kf(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfi
     if h[0] < 15 or h[1] < 0.5:
         return None, 0
     P_b, R_b = _pnp_to_body(ext, res.R_cw, res.t_cw)
+    ur, bf = _ur_bf(depth)
     tr = tracking.track_frame_visual(m, feats, uv, cam, ext, P_b, R_b, radius_coarse=15.0,
-                                     iters=iters)
+                                     iters=iters, feat_ur=ur, bf=bf)
     n_in = int(tr.n_inliers)
     if n_in < cfg.min_track_inliers:
         return None, 0
@@ -471,11 +504,12 @@ def invalidate_frame_caches(st: mapping_ctl.MappingState):
 def track_frame_reloc_window(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
                              ts: TrackState, feats, uv, t, cam: Camera,
                              ext: factors.Extrinsics, noise: IMUNoise, reloc_window=20,
-                             iters: int = 20):
+                             iters: int = 20, depth: FrameDepth | None = None):
     """One frame while the bias window after a relocalization fills (the
     reference tracks without the IMU while mbRelocBiasPrepare is set): visual
     tracking from the velocity model, the 40 px retry from the last pose, LOST
-    (and the window dropped) when both fail. The frame's pose, associations,
+    (and the window dropped) when both fail; a depth frame's u_right rows in
+    both. The frame's pose, associations,
     observations and IMU rows join `ts.reloc_buf`; the `reloc_window`-th frame
     runs `recompute_bias_from_window` and closes the window.
     Returns (ok, inliers, used the retry); one host read, two with the retry."""
@@ -483,13 +517,14 @@ def track_frame_reloc_window(m: MapState, st: mapping_ctl.MappingState, cfg: Sla
             else torch.zeros((0, 7), device=uv.device))
     ts.imu_since_frame = []
     P_last, R_last = ts.P, ts.R
+    ur, bf = _ur_bf(depth)
     res = tracking.track_frame_visual(m, feats, uv, cam, ext,
                                       P_last + tracking._mv(R_last, ts.dP), R_last @ ts.dR,
-                                      iters=iters)
+                                      iters=iters, feat_ur=ur, bf=bf)
     n_in, used_fb = int(res.n_inliers), False
     if n_in < cfg.min_track_inliers:
         res = tracking.track_frame_visual(m, feats, uv, cam, ext, P_last, R_last,
-                                          radius_coarse=40.0, iters=iters)
+                                          radius_coarse=40.0, iters=iters, feat_ur=ur, bf=bf)
         n_in, used_fb = int(res.n_inliers), True
         if n_in < cfg.min_track_inliers:
             ts.state, ts.has_prev = LOST, False

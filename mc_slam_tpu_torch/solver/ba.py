@@ -2,7 +2,9 @@
 mc_slam_tpu/solver/ba.py): `pose_only_visual`, Optimizer::PoseOptimization
 (Frame) as a fixed-iteration LM over one body pose against fixed world
 points, and `visual_ba`, Optimizer::BundleAdjustment / LocalBundleAdjustment
-over camera poses and XYZ landmarks. Monocular rows only.
+over camera poses and XYZ landmarks. With `VisualObs.ur` set, stereo / RGB-D
+rows add the u_right residual (`factors.reproj_xyz3`, bf = fx * baseline) and
+are gated at the 3-dof threshold CHI2_STEREO.
 """
 from __future__ import annotations
 
@@ -19,24 +21,40 @@ CHI2_STEREO = 7.815  # 95% quantile of chi2(3), reference's stereo gate
 
 
 class VisualObs(NamedTuple):
-    """Padded observation table (mono rows)."""
+    """Padded observation table (mono rows, optional stereo third row)."""
     cam: torch.Tensor         # (O,) int64 camera index
     pt: torch.Tensor          # (O,) int64 point index
     uv: torch.Tensor          # (O, 2) ideal (undistorted) pixels
     inv_sigma2: torch.Tensor  # (O,) per-level information scale
     valid: torch.Tensor       # (O,) {0,1} float
-    # observed right-image u; None => monocular problem. Stereo rows
-    # (factors.reproj_xyz3) are not ported yet.
+    # observed virtual right-image u (the reference's mvuRight); None => a
+    # monocular problem (2-row residuals); entries < 0 => monocular rows of a
+    # mixed table (third row masked)
     ur: torch.Tensor | None = None
 
 
-def obs_reproj(cam: Camera, ext, P_wb, R_wb, Pw, obs: VisualObs):
-    """Mono 2-row reprojection for an observation batch.
-    Returns (r, J_pr, J_pt, z, delta2)."""
-    if obs.ur is not None:
-        raise NotImplementedError("stereo / RGB-D residual rows are not ported yet")
-    r, J_pr, J_pt, z = factors.reproj_xyz(cam, ext, P_wb, R_wb, Pw, obs.uv)
-    return r, J_pr, J_pt, z, CHI2_MONO
+def obs_reproj(cam: Camera, ext, P_wb, R_wb, Pw, obs: VisualObs, bf=0.0):
+    """Mono 2-row or mixed 3-row reprojection for an observation batch.
+    Returns (r, J_pr, J_pt, z, delta2), delta2 the per-row Huber knee."""
+    return reproj_rows(cam, ext, P_wb, R_wb, Pw, obs.uv, obs.ur, bf)
+
+
+def reproj_rows(cam: Camera, ext, P_wb, R_wb, Pw, uv, ur=None, bf=0.0):
+    """`obs_reproj` on bare columns (also the chunked BA's rows): monocular
+    when ur is None, else the 3-row factor with the per-row gate."""
+    if ur is None:
+        r, J_pr, J_pt, z = factors.reproj_xyz(cam, ext, P_wb, R_wb, Pw, uv)
+        return r, J_pr, J_pt, z, CHI2_MONO
+    r, J_pr, J_pt, z = factors.reproj_xyz3(cam, ext, P_wb, R_wb, Pw, uv, ur, bf)
+    return r, J_pr, J_pt, z, chi2_gate(ur)
+
+
+def chi2_gate(ur):
+    """The per-row chi2 gate: CHI2_STEREO on rows with a u_right observation,
+    CHI2_MONO elsewhere (and everywhere when ur is None)."""
+    if ur is None:
+        return CHI2_MONO
+    return torch.where(ur >= 0, CHI2_STEREO, CHI2_MONO)
 
 
 def _obs_weights(r, z, inv_sigma2, valid, delta2):
@@ -56,13 +74,14 @@ def _robust_cost(r, z, inv_sigma2, valid, delta2):
 
 
 def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
-                     ext: factors.Extrinsics, iters: int = 40, rtol: float = 0.0):
-    """Optimize a single body pose against fixed world points.
+                     ext: factors.Extrinsics, iters: int = 40, bf=0.0, rtol: float = 0.0):
+    """Optimize a single body pose against fixed world points; with obs.ur
+    set, stereo / RGB-D rows add the u_right row (bf = fx * baseline).
     Returns (P, R, chi2 (O,), n_inlier)."""
     pts_o = pts_w[obs.pt]
 
     def per_obs(P, R):
-        return obs_reproj(camera, ext, P, R, pts_o, obs)
+        return obs_reproj(camera, ext, P, R, pts_o, obs, bf)
 
     def retract(x, dx):
         P, R = x
@@ -97,21 +116,22 @@ def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
 
 
 def visual_ba(P0, R0, pts0, obs: VisualObs, camera: Camera, ext: factors.Extrinsics,
-              free_cam, pt_mask, iters: int = 10, lam0: float = 1e-4,
+              free_cam, pt_mask, iters: int = 10, lam0: float = 1e-4, bf=0.0,
               rtol: float = 0.0, two_phase: bool = True):
     """Joint camera + landmark BA in the full landmark-table index space.
 
     P0 (Nc, 3), R0 (Nc, 3, 3), pts0 (Np, 3); free_cam (Nc,) float {0, 1};
-    pt_mask (Np,). Returns (P, R, pts, chi2 (O,), final cost, costs): `costs`
-    is the cost curve, for each round its starting cost followed by the cost
-    after every iteration."""
+    pt_mask (Np,). With obs.ur set, stereo / RGB-D rows constrain the metric
+    scale (bf = fx * baseline). Returns (P, R, pts, chi2 (O,), final cost,
+    costs): `costs` is the cost curve, for each round its starting cost
+    followed by the cost after every iteration."""
     Nc, Np = P0.shape[0], pts0.shape[0]
     obs = obs._replace(cam=obs.cam.to(torch.int64), pt=obs.pt.to(torch.int64))
     cam_k = obs.cam[:, None]
 
     def per_obs(x):
         P, R, pts = x
-        return obs_reproj(camera, ext, P[obs.cam], R[obs.cam], pts[obs.pt], obs)
+        return obs_reproj(camera, ext, P[obs.cam], R[obs.cam], pts[obs.pt], obs, bf)
 
     def retract(x, dx):
         P, R, pts = x

@@ -18,7 +18,8 @@ carried).
 
 Observation layout: rows grouped by landmark chunk (chunk k owns landmarks
 [k*C, (k+1)*C)), padded to one per-chunk budget; `chunk_observations` builds
-it on the host, once per call of a whole-map BA. Monocular rows only.
+it on the host, once per call of a whole-map BA. Stereo / RGB-D rows come in
+`ChunkedObs.ur` (bf = fx * baseline), through `ba.reproj_rows`.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ from mc_slam_tpu_torch.camera import Camera
 from mc_slam_tpu_torch.device import resolve
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.solver import factors, lm
-from mc_slam_tpu_torch.solver.ba import CHI2_MONO
+from mc_slam_tpu_torch.solver.ba import reproj_rows
 from mc_slam_tpu_torch.solver.ba_vi import (DC as DC_VI, IMUEdges, _imu_edge_factors,
                                             retract_states)
 
@@ -103,14 +104,6 @@ def chunk_observations(cam, pt, uv, inv_sigma2, valid, Np, n_chunks, ur=None,
         ur=t(o_ur) if ur is not None else None), C
 
 
-def _chunk_reproj(camera, ext, P_wb, R_wb, Pw, uv, ur):
-    """Residual rows of one chunk. Returns (r, J_pr, J_pt, z, delta2)."""
-    if ur is not None:
-        raise NotImplementedError("stereo / RGB-D residual rows are not ported yet")
-    r, J_pr, J_pt, z = factors.reproj_xyz(camera, ext, P_wb, R_wb, Pw, uv)
-    return r, J_pr, J_pt, z, CHI2_MONO
-
-
 def _robust_w(r, z, inv_sigma2, valid, d2):
     chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
     w = inv_sigma2 * lm.trunc_huber_weight(chi2, d2) * valid * (z > 1e-6)
@@ -137,12 +130,12 @@ def _chunk_rows(cobs: ChunkedObs, s, k, C):
             None if cobs.ur is None else cobs.ur[s])
 
 
-def _chunk_system(get_PR, pts, rows, camera, ext, free_cam, Nc, C, lam):
+def _chunk_system(get_PR, pts, rows, camera, ext, bf, free_cam, Nc, C, lam):
     """One chunk's landmark system at the current state: (Hcc, g_c, g_p, Wcp,
     Hpp_inv, robust cost), cameras in the 6-d visual space."""
     o_cam, o_pt, pt_local, o_uv, o_is2, o_val, o_ur = rows
     P_wb, R_wb = get_PR(o_cam)
-    r, J_pr, J_pt, z, d2 = _chunk_reproj(camera, ext, P_wb, R_wb, pts[o_pt], o_uv, o_ur)
+    r, J_pr, J_pt, z, d2 = reproj_rows(camera, ext, P_wb, R_wb, pts[o_pt], o_uv, o_ur, bf)
     w, cost = _robust_w(r, z, o_is2, o_val, d2)
     o = lm.Observations(cam=o_cam[:, None], pt=pt_local, Jc=J_pr[:, None], Jp=J_pt,
                         r=r, w=w)
@@ -151,7 +144,7 @@ def _chunk_system(get_PR, pts, rows, camera, ext, free_cam, Nc, C, lam):
     return Hcc, g_c, g_p, Wcp, Hpp_inv, cost
 
 
-def _scan_reduce(get_PR, pts, cobs: ChunkedObs, camera, ext, free_cam, Nc, C, lam,
+def _scan_reduce(get_PR, pts, cobs: ChunkedObs, camera, ext, bf, free_cam, Nc, C, lam,
                  ks=None):
     """First pass: the Schur-reduced camera system summed over the chunks, in
     the 6-d visual space. get_PR(cam_idx) -> (P_wb, R_wb) per row. Returns
@@ -164,7 +157,7 @@ def _scan_reduce(get_PR, pts, cobs: ChunkedObs, camera, ext, free_cam, Nc, C, la
     n = Nc * DV
     for s, k in enumerate(_chunk_ids(cobs, ks)):
         Hcc, g_c, g_p, Wcp, Hpp_inv, cost = _chunk_system(
-            get_PR, pts, _chunk_rows(cobs, s, k, C), camera, ext, free_cam, Nc, C, lam)
+            get_PR, pts, _chunk_rows(cobs, s, k, C), camera, ext, bf, free_cam, Nc, C, lam)
         Y = torch.einsum('cipj,pjk->cipk', Wcp, Hpp_inv)
         S_acc = S_acc + (Hcc - torch.einsum('cipk,djpk->cidj', Y, Wcp))
         g_acc = g_acc + (g_c - torch.einsum('cipk,pk->ci', Y, g_p))
@@ -173,7 +166,7 @@ def _scan_reduce(get_PR, pts, cobs: ChunkedObs, camera, ext, free_cam, Nc, C, la
     return S_acc, g_acc, d_acc, c_acc
 
 
-def _scan_backsub(get_PR, pts, cobs: ChunkedObs, camera, ext, free_cam, Nc, C, lam,
+def _scan_backsub(get_PR, pts, cobs: ChunkedObs, camera, ext, bf, free_cam, Nc, C, lam,
                   dxc, pt_mask, ks=None):
     """Second pass: each chunk's landmark steps given the camera step dxc
     (Nc, >= 6; its leading 6 columns are used). Returns (S * C, 3), the chunks
@@ -181,32 +174,32 @@ def _scan_backsub(get_PR, pts, cobs: ChunkedObs, camera, ext, free_cam, Nc, C, l
     out = []
     for s, k in enumerate(_chunk_ids(cobs, ks)):
         _, _, g_p, Wcp, Hpp_inv, _ = _chunk_system(
-            get_PR, pts, _chunk_rows(cobs, s, k, C), camera, ext, free_cam, Nc, C, lam)
+            get_PR, pts, _chunk_rows(cobs, s, k, C), camera, ext, bf, free_cam, Nc, C, lam)
         rhs = g_p + torch.einsum('cipj,ci->pj', Wcp, dxc[:, :DV])
         dxp = -torch.einsum('pjk,pk->pj', Hpp_inv, rhs)
         out.append(dxp * pt_mask[k * C:(k + 1) * C, None])
     return torch.cat(out)
 
 
-def _chunk_cost(get_PR, pts, cobs: ChunkedObs, camera, ext, C, ks=None):
+def _chunk_cost(get_PR, pts, cobs: ChunkedObs, camera, ext, bf, C, ks=None):
     c_acc = torch.zeros((), dtype=pts.dtype, device=pts.device)
     for s, k in enumerate(_chunk_ids(cobs, ks)):
         o_cam, o_pt, _, o_uv, o_is2, o_val, o_ur = _chunk_rows(cobs, s, k, C)
         P_wb, R_wb = get_PR(o_cam)
-        r, _, _, z, d2 = _chunk_reproj(camera, ext, P_wb, R_wb, pts[o_pt], o_uv, o_ur)
+        r, _, _, z, d2 = reproj_rows(camera, ext, P_wb, R_wb, pts[o_pt], o_uv, o_ur, bf)
         c_acc = c_acc + _robust_w(r, z, o_is2, o_val, d2)[1]
     return c_acc
 
 
-def _chunk_classify(get_PR, pts, cobs: ChunkedObs, camera, ext, C, ks=None):
+def _chunk_classify(get_PR, pts, cobs: ChunkedObs, camera, ext, bf, C, ks=None):
     """Inlier re-classification at the current state, chunk by chunk:
     valid * (chi2 <= knee) * (z > 0), the between-rounds outlier gate
     (src/Optimizer.cpp:1920-1980). Returns (S, Oc)."""
     out = []
     for s in range(cobs.cam.shape[0]):
         P_wb, R_wb = get_PR(cobs.cam[s])
-        r, _, _, z, d2 = _chunk_reproj(camera, ext, P_wb, R_wb, pts[cobs.pt[s]], cobs.uv[s],
-                                       None if cobs.ur is None else cobs.ur[s])
+        r, _, _, z, d2 = reproj_rows(camera, ext, P_wb, R_wb, pts[cobs.pt[s]], cobs.uv[s],
+                                     None if cobs.ur is None else cobs.ur[s], bf)
         chi2 = torch.sum(r * r, dim=-1) * cobs.inv_sigma2[s]
         out.append(cobs.valid[s] * ((chi2 <= d2) & (z > 1e-6)).to(cobs.valid.dtype))
     return torch.stack(out)
@@ -226,19 +219,13 @@ def _solve_reduced(S_red, g_red, diag, cam_H, cam_g, lam, free_cam, Nc, DC):
     return lm.cho_solve_nan(Sf, -gf).reshape(Nc, DC)
 
 
-def _check_mono(cobs: ChunkedObs):
-    if cobs.ur is not None:
-        raise NotImplementedError("stereo / RGB-D residual rows are not ported yet")
-
-
 def visual_gba_chunked(P0, R0, pts0, cobs: ChunkedObs, camera: Camera,
                        ext: factors.Extrinsics, free_cam, pt_mask, iters: int = 10,
-                       lam0: float = 1e-4, ks=None):
+                       lam0: float = 1e-4, bf=0.0, ks=None):
     """Whole-map visual BA (GlobalBundleAdjustment, src/Optimizer.cpp:3346)
     with the landmark-chunked Schur complement; one round, no outlier
     re-classification. Returns (P, R, pts, cost, costs): `costs` is the cost
     curve, the starting cost followed by the cost after every iteration."""
-    _check_mono(cobs)
     Nc = P0.shape[0]
     C = pts0.shape[0] // cobs.cam.shape[0]
     Z = torch.zeros((Nc, DV, Nc, DV), dtype=pts0.dtype, device=pts0.device)
@@ -254,16 +241,16 @@ def visual_gba_chunked(P0, R0, pts0, cobs: ChunkedObs, camera: Camera,
 
         def cost_fn(x):
             P, R, pts = x
-            return _chunk_cost(lambda ci: (P[ci], R[ci]), pts, vobs, camera, ext, C, ks)
+            return _chunk_cost(lambda ci: (P[ci], R[ci]), pts, vobs, camera, ext, bf, C, ks)
 
         def linearize_solve(x, lam):
             P, R, pts = x
             get_PR = lambda ci: (P[ci], R[ci])
-            S_red, g_red, diag, _ = _scan_reduce(get_PR, pts, vobs, camera, ext, free_cam,
-                                                 Nc, C, lam, ks)
+            S_red, g_red, diag, _ = _scan_reduce(get_PR, pts, vobs, camera, ext, bf,
+                                                 free_cam, Nc, C, lam, ks)
             dxc = _solve_reduced(S_red, g_red, diag, Z, z, lam, free_cam, Nc, DV)
-            dxp = _scan_backsub(get_PR, pts, vobs, camera, ext, free_cam, Nc, C, lam, dxc,
-                                pt_mask, ks)
+            dxp = _scan_backsub(get_PR, pts, vobs, camera, ext, bf, free_cam, Nc, C, lam,
+                                dxc, pt_mask, ks)
             return dxc, dxp
 
         return linearize_solve, retract, cost_fn
@@ -271,7 +258,7 @@ def visual_gba_chunked(P0, R0, pts0, cobs: ChunkedObs, camera: Camera,
     def classify(x, valid0):
         P, R, pts = x
         return _chunk_classify(lambda ci: (P[ci], R[ci]), pts, cobs._replace(valid=valid0),
-                               camera, ext, C, ks)
+                               camera, ext, bf, C, ks)
 
     curve = []
     (P, R, pts), cost, _ = lm.lm_two_phase(
@@ -294,11 +281,10 @@ def _embed15(A6, Nc):
 
 def vi_gba_chunked(ns0: NavState, pts0, cobs: ChunkedObs, edges: IMUEdges, camera: Camera,
                    ext: factors.Extrinsics, gw, free_cam, pt_mask, iters: int = 10,
-                   lam0: float = 1e-4, ks=None):
+                   lam0: float = 1e-4, bf=0.0, ks=None):
     """Whole-map VI BA (GlobalBundleAdjustmentNavStatePRV,
     src/Optimizer.cpp:629) with the landmark-chunked Schur complement; one
     round. Returns (ns, pts, cost, costs), `costs` as in visual_gba_chunked."""
-    _check_mono(cobs)
     Nc = ns0.P.shape[0]
     C = pts0.shape[0] // cobs.cam.shape[0]
     edges = edges._replace(i=edges.i.to(torch.int64), j=edges.j.to(torch.int64))
@@ -322,20 +308,20 @@ def vi_gba_chunked(ns0: NavState, pts0, cobs: ChunkedObs, edges: IMUEdges, camer
 
         def cost_fn(x):
             ns, pts = x
-            c = _chunk_cost(lambda ci: (ns.P[ci], ns.R[ci]), pts, vobs, camera, ext, C, ks)
+            c = _chunk_cost(lambda ci: (ns.P[ci], ns.R[ci]), pts, vobs, camera, ext, bf, C, ks)
             return c + cam_factor_system(ns)[2]
 
         def linearize_solve(x, lam):
             ns, pts = x
             get_PR = lambda ci: (ns.P[ci], ns.R[ci])
-            S6, g6, d6, _ = _scan_reduce(get_PR, pts, vobs, camera, ext, free_cam, Nc, C,
-                                         lam, ks)
+            S6, g6, d6, _ = _scan_reduce(get_PR, pts, vobs, camera, ext, bf, free_cam, Nc,
+                                         C, lam, ks)
             Hc, gc, _ = cam_factor_system(ns)
             diag = _embed15(d6.reshape(Nc, DV), Nc).reshape(-1)
             dxc = _solve_reduced(_embed15(S6, Nc), _embed15(g6, Nc), diag, Hc, gc, lam,
                                  free_cam, Nc, DC_VI)
-            dxp = _scan_backsub(get_PR, pts, vobs, camera, ext, free_cam, Nc, C, lam, dxc,
-                                pt_mask, ks)
+            dxp = _scan_backsub(get_PR, pts, vobs, camera, ext, bf, free_cam, Nc, C, lam,
+                                dxc, pt_mask, ks)
             return dxc, dxp
 
         return linearize_solve, retract, cost_fn
@@ -343,7 +329,7 @@ def vi_gba_chunked(ns0: NavState, pts0, cobs: ChunkedObs, edges: IMUEdges, camer
     def classify(x, valid0):
         ns, pts = x
         return _chunk_classify(lambda ci: (ns.P[ci], ns.R[ci]), pts,
-                               cobs._replace(valid=valid0), camera, ext, C, ks)
+                               cobs._replace(valid=valid0), camera, ext, bf, C, ks)
 
     curve = []
     (ns, pts), cost, _ = lm.lm_two_phase(

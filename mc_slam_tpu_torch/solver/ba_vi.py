@@ -4,7 +4,8 @@ mc_slam_tpu/solver/ba_vi.py): `pose_only_vi`, Optimizer::PoseOptimization
 the 15x15 marginal information prior handed to the next frame; and `vi_ba`,
 Optimizer::Local / GlobalBundleAdjustmentNavStatePRV (:937, :629), the BA
 over 15-d NavStates and XYZ landmarks with the IMU PRV chain and bias
-random-walk edges.
+random-walk edges. Both take stereo / RGB-D rows through `VisualObs.ur` and
+bf = fx * baseline (`ba.obs_reproj`).
 
 State layout per frame (DC = 15): [dP, dphi, dV, ddbg, ddba].
 """
@@ -92,9 +93,9 @@ def _quad_cost(fac: lm.CamFactors):
 
 
 def _vi_total_cost(ns: NavState, pts, obs: VisualObs, edges: IMUEdges, prior,
-                   camera, ext, gw):
+                   camera, ext, gw, bf=0.0):
     r, _, _, z, d2 = obs_reproj(camera, ext, ns.P[obs.cam], ns.R[obs.cam],
-                                pts[obs.pt], obs)
+                                pts[obs.pt], obs, bf)
     c = _robust_cost(r, z, obs.inv_sigma2, obs.valid, d2)
     prv, bias = _imu_edge_factors(ns, edges, gw)
     c = c + _quad_cost(prv) + _quad_cost(bias)
@@ -142,7 +143,7 @@ def _build_H_cam(ns, edges, prior, gw, free_mask, Nc):
 def vi_ba(ns0: NavState, pts0, obs: VisualObs, edges: IMUEdges, camera: Camera,
           ext: factors.Extrinsics, gw, free_cam, pt_mask,
           prior: PriorFactor | None = None, iters: int = 10, lam0: float = 1e-4,
-          fix_points: bool = False, rtol: float = 0.0, two_phase: bool = True):
+          fix_points: bool = False, bf=0.0, rtol: float = 0.0, two_phase: bool = True):
     """Windowed / global VI bundle adjustment over NavStates + XYZ landmarks
     in the full landmark-table index space.
 
@@ -160,7 +161,7 @@ def vi_ba(ns0: NavState, pts0, obs: VisualObs, edges: IMUEdges, camera: Camera,
 
     def per_obs(x):
         ns, pts = x
-        return obs_reproj(camera, ext, ns.P[obs.cam], ns.R[obs.cam], pts[obs.pt], obs)
+        return obs_reproj(camera, ext, ns.P[obs.cam], ns.R[obs.cam], pts[obs.pt], obs, bf)
 
     def retract(x, dx):
         ns, pts = x
@@ -172,7 +173,7 @@ def vi_ba(ns0: NavState, pts0, obs: VisualObs, edges: IMUEdges, camera: Camera,
 
         def cost_fn(x):
             ns, pts = x
-            return _vi_total_cost(ns, pts, vobs, edges, prior, camera, ext, gw)
+            return _vi_total_cost(ns, pts, vobs, edges, prior, camera, ext, gw, bf)
 
         def linearize_solve(x, lam):
             ns, pts = x
@@ -214,7 +215,7 @@ def vi_ba(ns0: NavState, pts0, obs: VisualObs, edges: IMUEdges, camera: Camera,
 def pose_only_vi(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState,
                  pts_w, obs: VisualObs, camera: Camera, ext: factors.Extrinsics,
                  gw, prior_last: PriorFactor, info_prv, info_bias,
-                 iters: int = 40, compute_marg: bool = True, rtol: float = 0.0):
+                 iters: int = 40, compute_marg: bool = True, bf=0.0, rtol: float = 0.0):
     """Joint (last, current) frame optimization tied by the IMU PRV + bias
     edges, last frame held by its marginal prior, map points fixed.
     Returns (ns_cur, chi2 (O,), n_inliers, H_marg (15, 15)); H_marg is the
@@ -233,7 +234,7 @@ def pose_only_vi(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState
 
     def build(ns, valid):
         r, J_pr, _, z, d2 = obs_reproj(camera, ext, ns.P[obs.cam], ns.R[obs.cam],
-                                       pts_o, obs)
+                                       pts_o, obs, bf)
         w, _ = _obs_weights(r, z, obs.inv_sigma2, valid, d2)
         wJ = J_pr * w[:, None, None]
         H = torch.zeros((Nc, DC, Nc, DC), dtype=r.dtype, device=dev)
@@ -254,7 +255,7 @@ def pose_only_vi(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState
 
         def cost_fn(ns):
             return _vi_total_cost(ns, pts_w, vobs, edges, prior_last, camera,
-                                  ext, gw)
+                                  ext, gw, bf)
 
         def linearize_solve(ns, lam):
             H, g = build(ns, valid)
@@ -264,7 +265,7 @@ def pose_only_vi(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState
 
     def classify(ns, valid0):
         r, _, _, z, d2 = obs_reproj(camera, ext, ns.P[obs.cam], ns.R[obs.cam],
-                                    pts_o, obs)
+                                    pts_o, obs, bf)
         chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
         return valid0 * ((chi2 <= d2) & (z > 1e-6)).to(valid0.dtype)
 
@@ -273,7 +274,7 @@ def pose_only_vi(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState
     ns = ns._replace(R=lie.so3_normalize_fast(ns.R))
 
     r, _, _, z, d2_f = obs_reproj(camera, ext, ns.P[obs.cam], ns.R[obs.cam],
-                                  pts_o, obs)
+                                  pts_o, obs, bf)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     inlier = (chi2 <= d2_f) & (z > 0) & (obs.valid > 0)
 

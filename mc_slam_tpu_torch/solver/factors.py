@@ -1,6 +1,6 @@
 """Residual / analytic-Jacobian kernels of the tracking and window-BA factors
 (port of the parts of mc_slam_tpu/solver/factors.py that tracking and the
-keyframe event reach).
+keyframe event reach, the stereo / RGB-D row of `reproj_xyz3` included).
 
 Body pose (P = t_wb, R = R_wb) with retraction P <- P + dP, R <- R Exp(dphi).
 Reprojection residual r = project(Pc) - uv_obs; IMU PRV residual order
@@ -63,6 +63,33 @@ def reproj_xyz(cam: Camera, ext: Extrinsics, P_wb, R_wb, Pw, uv):
     J_phi = ext.Rcb @ lie.hat(Pb)
     J_pr = torch.cat([Jpi @ (-RcbRwbT), Jpi @ J_phi], dim=-1)
     J_pt = Jpi @ RcbRwbT
+    return r, J_pr, J_pt, z
+
+
+def reproj_xyz3(cam: Camera, ext: Extrinsics, P_wb, R_wb, Pw, uv, ur, bf):
+    """The 3-row stereo / RGB-D reprojection factor (EdgeStereoSE3ProjectXYZ,
+    src/Optimizer.cpp:3110-3180): rows [u, v, u_right] with the virtual
+    right-image coordinate u_right = u - bf / z (bf = fx * baseline, the
+    reference's mbf). ur (...,): the observed u_right; rows with ur < 0 are
+    monocular, their third residual and Jacobian rows are zero.
+    Returns r (..., 3), J_pr (..., 3, 6), J_pt (..., 3, 3), z (...,)."""
+    RwbT = R_wb.transpose(-1, -2)
+    Pb = _mv(RwbT, Pw - P_wb)
+    Pc = _mv(ext.Rcb, Pb) + ext.tcb
+    uv_hat, z = _project_ideal(cam, Pc)
+    z_safe = torch.where(torch.abs(z) < 1e-9, 1e-9 * torch.ones_like(z), z)
+    is_st = (ur >= 0).to(uv_hat.dtype)
+    r_ur = is_st * (uv_hat[..., 0] - bf / z_safe - ur)
+    r = torch.cat([uv_hat - uv, r_ur[..., None]], dim=-1)
+    Jpi = project_jacobian(cam, Pc)
+    # d(u_right)/dPc = du/dPc + [0, 0, bf / z^2]
+    zero = torch.zeros_like(z)
+    row3 = Jpi[..., 0, :] + torch.stack([zero, zero, bf / (z_safe * z_safe)], dim=-1)
+    Jpi3 = torch.cat([Jpi, (is_st[..., None] * row3)[..., None, :]], dim=-2)
+    RcbRwbT = ext.Rcb @ RwbT
+    J_phi = ext.Rcb @ lie.hat(Pb)
+    J_pr = torch.cat([Jpi3 @ (-RcbRwbT), Jpi3 @ J_phi], dim=-1)
+    J_pt = Jpi3 @ RcbRwbT
     return r, J_pr, J_pt, z
 
 

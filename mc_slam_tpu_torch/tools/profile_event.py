@@ -1,7 +1,7 @@
 """Stage tables of the keyframe events and of the bootstrap at the euroc
 profile's full width.
 
-    python3 -m mc_slam_tpu_torch.tools.profile_event [--path vi|bootstrap|revisit]
+    python3 -m mc_slam_tpu_torch.tools.profile_event [--path vi|bootstrap|revisit|depth]
         [--events 3] [--out profile_event.json]
 
 `--path vi` (the default) runs chip_smoke.py's track-and-map path up to the
@@ -22,6 +22,12 @@ successful one whole and stage by stage (BoW histogram and scores, the batched
 candidate evaluation, the refinement against the map), the 20-frame bias
 solve, and the stages of the loop event (detection, the Sim3 batch, the guided
 verification, the pose graph, both fusion rounds, the whole-map BA).
+`--path depth` runs chip_smoke.py's path 7 (rectified stereo + IMU to 20 VI
+frames after VI init), keeping the states handed to the VI trackers and to
+the keyframe events, then runs alone: one stereo VI frame (both
+extractions, `stereo_depth`, the whole depth lookup, the VI tracker with the
+u_right rows) and one keyframe event after VI init stage by stage, its BA the
+XYZ window VI BA with the u_right rows.
 Each stage runs under torch.profiler and with
 torch.cuda.set_sync_debug_mode("warn"): host milliseconds (host clock, the
 stage ends in a synchronize), device-busy milliseconds (sum of the kernels'
@@ -309,9 +315,78 @@ def profile_revisit(chip_smoke, dev, smi, out):
     print(json.dumps(result), flush=True)
 
 
+def profile_depth(chip_smoke, dev, smi, out):
+    """Stage tables of a stereo VI frame and a keyframe event with the XYZ
+    window VI BA (see the module docstring)."""
+    from mc_slam_tpu_torch import camera as tcam
+    from mc_slam_tpu_torch.frontend import extractor, stereo
+    from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl, tracking_ctl
+    p = chip_smoke.EUROC
+    seq = chip_smoke.make_sequence(dataclasses.replace(p, n_frames=p.boot_max_frame + 30),
+                                   seed=0, n_depth=0)
+    cam = chip_smoke.profile_camera(p, dev)
+    right = chip_smoke.render_right(seq, p, range(len(seq.imgs)))
+    vi_frames = []
+    orig = tracking_ctl.track_vi
+
+    def spy(m, st, cfg, ts, *a, **k):
+        if k.get("depth") is not None and len(vi_frames) < 2:
+            vi_frames.append((m, copy.deepcopy(st), copy.deepcopy(ts), a, dict(k)))
+        return orig(m, st, cfg, ts, *a, **k)
+
+    tracking_ctl.track_vi = spy
+    try:
+        with chip_smoke.capture_bootstrap_states() as cap:
+            res = chip_smoke.run_depth(seq, p, cam, dev, right=right)
+    finally:
+        tracking_ctl.track_vi = orig
+    chip_smoke.check_depth(res, seq, stereo=True)
+    slam = res["slam"]
+    cfg, ext, noise = slam.cfg, slam.ext, slam.noise
+    rows = []
+    measure("profiler warm-up (not a stage)", lambda: mapping.cull_and_evict(slam.m, 0), [])
+
+    # ---- one stereo VI frame ----
+    m_f, st_f, ts_f, a_f, k_f = vi_frames[-1]
+    img, t = a_f[0], a_f[1]
+    i = int(round(t * p.fps))
+    img_l = torch.from_numpy(seq.imgs[i]).to(dev)
+    img_r = torch.from_numpy(right[i]).to(dev)
+    ex = lambda im: extractor.extract(im, n_features=p.n_feat, n_levels=p.n_levels)
+    fL = measure("stereo frame: extract left (1024 features, 8 levels)", lambda: ex(img_l), rows)
+    fR = measure("stereo frame: extract right", lambda: ex(img_r), rows)
+    uvL, uvR = tcam.undistort_points(cam, fL.xy), tcam.undistort_points(cam, fR.xy)
+    measure("stereo frame: stereo_depth (1024 x 1024 gated match + mutual check)",
+            lambda: stereo.stereo_depth(uvL, fL.desc_pm1, fL.valid, uvR, fR.desc_pm1, fR.valid,
+                                        cam.fx, cfg.stereo_baseline), rows)
+    fd = measure("stereo frame: SlamSystem._frame_depth whole (right extraction, stereo_depth, "
+                 "u_right)", lambda: slam._frame_depth(fL, uvL, None, img_r), rows)
+    k_run = dict(k_f, frame=(fL, uvL), depth=fd, allow_kf=False, loop=None, event_timer=None)
+    measure("stereo frame: track_vi (VI tracker with the u_right rows, no keyframe)",
+            lambda: orig(m_f, copy.deepcopy(st_f), cfg, copy.deepcopy(ts_f), *a_f, **k_run),
+            rows)
+
+    # ---- one keyframe event after VI init: the XYZ window VI BA ----
+    m_e, st_e, frame_e = [c for c in cap["events"] if c[1].vi_inited][-1]
+    print(f"[event] keyframe {st_e.last_kf_slot} at frame {frame_e}: {int(m_e.mp_active.sum())} "
+          f"active points, {len(st_e.kf_slots)} keyframes", flush=True)
+    gw = slam.gw
+    # one untimed pass first (allocator, solver handles)
+    mapping_ctl.keyframe_event(m_e, copy.deepcopy(st_e), cfg, frame_e, cam, ext, gw, noise,
+                               max_new=p.max_new, ba_Pw=p.ba_Pw)
+    ba = _event_stages(m_e, st_e, cfg, frame_e, cam, ext, gw, noise, rows,
+                       "BA: XYZ window VI BA (vi_ba with u_right rows, 8 iterations, 2 rounds)",
+                       p)
+    result = {"card": smi, "path": "depth", "vi_frame": i, "event_frame": frame_e,
+              "event_n_landmarks": int(ba.n_landmarks), "stages": rows}
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result), flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--path", choices=("vi", "bootstrap", "revisit"), default="vi")
+    ap.add_argument("--path", choices=("vi", "bootstrap", "revisit", "depth"), default="vi")
     ap.add_argument("--events", type=int, default=3)
     ap.add_argument("--out", type=Path, default=Path("profile_event.json"))
     args = ap.parse_args()
@@ -330,6 +405,8 @@ def main():
         return profile_bootstrap(chip_smoke, dev, smi, args.out)
     if args.path == "revisit":
         return profile_revisit(chip_smoke, dev, smi, args.out)
+    if args.path == "depth":
+        return profile_depth(chip_smoke, dev, smi, args.out)
     p = dataclasses.replace(chip_smoke.EUROC, n_frames=args.events * chip_smoke.EUROC.kf_every + 1)
     seq = chip_smoke.make_sequence(p, seed=0)
     cam = chip_smoke.profile_camera(p, dev)

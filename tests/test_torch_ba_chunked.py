@@ -2,7 +2,7 @@
 the three single-device cases of tests/test_ba_chunked.py through both
 packages on the same seeded scenes, the port's chunked form against the
 port's dense form, and the failure modes (a reduced system that is not
-positive definite, stereo rows).
+positive definite) and the stereo / RGB-D rows.
 
 Tolerances: `chunk_observations` is host arithmetic and must agree exactly.
 Both solvers run the same fixed count of float32 LM iterations with the same
@@ -57,14 +57,19 @@ def test_chunk_observations_pad_to_and_stereo_rows(rng):
         tch.chunk_observations(*args, 40, 4, pad_to=2, device="cpu")
     with pytest.raises(ValueError, match="chunks"):
         tch.chunk_observations(*args, 40, 3, device="cpu")
-    # stereo rows reach reproj_xyz3, which is not ported: loud, not mono
-    z = torch.zeros
-    with pytest.raises(NotImplementedError, match="stereo"):
-        tch.visual_gba_chunked(z(4, 3), torch.eye(3).expand(4, 3, 3), z(40, 3), ct, TCAM,
-                               TEXT, torch.ones(4), torch.ones(40), iters=1)
-    with pytest.raises(NotImplementedError, match="stereo"):
-        tch._chunk_reproj(TCAM, TEXT, z(5, 3), torch.eye(3).expand(5, 3, 3), z(5, 3),
-                          z(5, 2), z(5))
+    # stereo rows of a chunk (ba.reproj_rows) reach reproj_xyz3 with the
+    # per-row gate: the JAX rows to 1e-4 px (residuals), 1e-3 relative
+    # (Jacobians), the gate exactly; rows with ur < 0 keep a zero third row
+    Pw = _t(rng.uniform(-1, 1, (5, 3)) + [0, 0, 4])
+    ur5 = np.asarray([300.0, -1.0, 250.0, -1.0, 100.0], np.float32)
+    uv5 = rng.uniform(100, 300, (5, 2)).astype(np.float32)
+    Pwb, Rwb = torch.zeros(5, 3), torch.eye(3).expand(5, 3, 3)
+    got = tba.reproj_rows(TCAM, TEXT, Pwb, Rwb, Pw, _t(uv5), _t(ur5), 40.0)
+    ref = jch._chunk_reproj(JCAM, JEXT, jnp.asarray(Pwb.numpy()), jnp.asarray(Rwb.numpy()),
+                            jnp.asarray(Pw.numpy()), jnp.asarray(uv5), jnp.asarray(ur5), 40.0)
+    for g, r, tol in zip(got, ref, (1e-4, 1e-3, 1e-3, 1e-6, 0.0)):
+        np.testing.assert_allclose(np.asarray(g), np.asarray(r), rtol=max(tol, 1e-6), atol=tol)
+    assert np.all(got[0].numpy()[ur5 < 0, 2] == 0) and np.all(got[1].numpy()[ur5 < 0, 2] == 0)
 
 
 def test_chunked_visual_matches_jax_and_dense(rng):
@@ -99,10 +104,10 @@ def test_chunked_visual_matches_jax_and_dense(rng):
     # a shard that holds chunks 2 and 3 only: `ks` keeps the local index right
     half = tch.ChunkedObs(*[a[2:] if a is not None else None for a in ct])
     dxp = tch._scan_backsub(lambda ci: (_t(P0)[ci], _t(R)[ci]), _t(pts0), half, TCAM, TEXT,
-                            _t(free), 6, 20, torch.tensor(1e-4), torch.zeros(6, 6), _t(mask),
+                            0.0, _t(free), 6, 20, torch.tensor(1e-4), torch.zeros(6, 6), _t(mask),
                             ks=[2, 3])
     full = tch._scan_backsub(lambda ci: (_t(P0)[ci], _t(R)[ci]), _t(pts0), ct, TCAM, TEXT,
-                             _t(free), 6, 20, torch.tensor(1e-4), torch.zeros(6, 6), _t(mask))
+                             0.0, _t(free), 6, 20, torch.tensor(1e-4), torch.zeros(6, 6), _t(mask))
     np.testing.assert_allclose(dxp.numpy(), full.numpy()[40:], atol=1e-6)
 
 

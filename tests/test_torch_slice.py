@@ -34,7 +34,7 @@ from mc_slam_tpu.slam_map import mapstate as jms
 from mc_slam_tpu.solver import ba_vi as jbavi, factors as jfac
 from mc_slam_tpu_torch import convert
 from mc_slam_tpu_torch.frontend.orb import pack_bits
-from mc_slam_tpu_torch.pipeline import (mapping as tmapping, system as tsystem,
+from mc_slam_tpu_torch.pipeline import (mapping as tmapping, mapping_ctl as tmapping_ctl,
                                         tracking_ctl as ttracking_ctl)
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
 
@@ -96,7 +96,7 @@ def test_convert_round_trip_keeps_dtypes():
 
 
 def test_map_seeding_helpers(scene):
-    """write_keyframe, _depth_to_world, _alloc_points (keyframe at the origin,
+    """write_keyframe, depth_to_world, alloc_points (keyframe at the origin,
     the JAX caller's case) and fresh_prior_info against the JAX code."""
     rng = np.random.default_rng(1)
     F = P.n_feat
@@ -108,8 +108,8 @@ def test_map_seeding_helpers(scene):
     z3, I3 = np.zeros(3, np.float32), np.eye(3, dtype=np.float32)
     Xw_j = np.array(SlamSystem._depth_to_world(host, jnp.asarray(uv), jnp.asarray(depth),
                                                  jnp.asarray(z3), jnp.asarray(I3)))
-    Xw_t = tsystem._depth_to_world(scene.cam, scene.ext, torch.from_numpy(uv),
-                                   torch.from_numpy(depth), torch.zeros(3), torch.eye(3))
+    Xw_t = tmapping_ctl.depth_to_world(scene.cam, scene.ext, torch.from_numpy(uv),
+                                       torch.from_numpy(depth), torch.zeros(3), torch.eye(3))
     np.testing.assert_allclose(Xw_j, Xw_t.numpy(), rtol=1e-5, atol=1e-5)
 
     words = rng.integers(0, 2 ** 32, (F, 8), dtype=np.uint32)
@@ -129,9 +129,10 @@ def test_map_seeding_helpers(scene):
     fj, sj = SlamSystem._alloc_points(jhost, jnp.asarray(Xw_j), jnp.asarray(words),
                                       jnp.asarray(pm1), jnp.asarray(level), 2, good,
                                       angle=jnp.asarray(angle))
-    tm, ft, st = tsystem._alloc_points(tm, torch.from_numpy(Xw_j), convert._tensor(words, None),
-                                       torch.from_numpy(pm1), torch.from_numpy(level), 2,
-                                       good, P.n_levels, 7, angle=torch.from_numpy(angle))
+    tm, ft, st = tmapping_ctl.alloc_points(tm, torch.from_numpy(Xw_j),
+                                           convert._tensor(words, None),
+                                           torch.from_numpy(pm1), torch.from_numpy(level), 2,
+                                           good, P.n_levels, 7, angle=torch.from_numpy(angle))
     np.testing.assert_array_equal(fj, ft)
     np.testing.assert_array_equal(sj, st)
     got = convert.to_numpy(tm)

@@ -1,7 +1,7 @@
 """The port's `SlamSystem` class on the CPU (`device="cpu"`): its state
 machine on the first frames of the bootstrap fixture, `reset`, localization
 mode, LOST handling with its count and event, the inputs and options that are
-not ported (they raise), `upload`, `global_refine` over 41 synthetic
+not ported (they raise) and the depth inputs that now are, `upload`, `global_refine` over 41 synthetic
 keyframes (which must take the landmark-chunked BA and agree with the dense
 one to 1e-3 m), `StageTimer` (as tests/test_aux.py), `VIInitLog`, the config's
 defaults against the JAX package's field by field, and the hand-over of the
@@ -117,11 +117,16 @@ def test_blank_frame_gives_lost_counted_and_logged():
 def test_inputs_and_options_that_are_not_ported_raise():
     seq, slam = _system()
     img = seq.imgs[0]
-    with pytest.raises(NotImplementedError, match="depth"):
-        slam.track(img, 0.0, depth=np.ones_like(img, np.float32))
-    with pytest.raises(NotImplementedError, match="stereo"):
-        slam.track(img, 0.0, img_right=img)
-    assert slam.frame_id == 0 and slam.state == NO_IMAGES_YET
+    # depth= and img_right= are ported: a depth frame with too few depth
+    # points initializes nothing; one with enough builds the metric map at once
+    assert slam.track(img, 0.0, depth=np.zeros_like(img, np.float32)) is False
+    assert slam.frame_id == 1 and slam.state == NO_IMAGES_YET and slam.sensor_depth
+    assert slam.track(img, 0.05, img_right=img) is False       # zero disparity: no depth
+    assert slam.track(img, 0.1, seq.imu[1], depth=seq.depths[0]) is True
+    assert slam.state == OK and slam.kf_slots == [0] and slam.events[-1][1] == "init"
+    assert bool((slam.m.kf_ur[0] >= 0).any()) and int(slam.m.mp_active.sum()) >= 50
+    slam.reset()
+    assert slam.frame_id == 0 and slam.state == NO_IMAGES_YET and not slam.sensor_depth
     # loop closing is on by default and can be set, as in the JAX class
     assert slam.enable_loop_closing is True
     slam.enable_loop_closing = False
@@ -131,10 +136,11 @@ def test_inputs_and_options_that_are_not_ported_raise():
     assert slam.loop.hists.shape == (slam.cfg.max_kf, 32768) and slam.loop_edges == []
     with pytest.raises(NotImplementedError, match="mesh"):
         slam.enable_mesh()
-    # the XYZ form of the VI window BA is not ported either
-    st = mapping_ctl.MappingState(kf_slots=[0, 1, 2], last_kf_slot=2, vi_inited=True)
-    with pytest.raises(NotImplementedError, match="use_idp_ba"):
-        mapping_ctl.local_ba(None, st, SlamConfig(use_idp_ba=False), None, None, None, None)
+    # the XYZ form of the VI window BA is ported (use_idp_ba=False): a window
+    # of one keyframe has nothing to solve
+    st = mapping_ctl.MappingState(kf_slots=[0], last_kf_slot=0, vi_inited=True)
+    assert mapping_ctl.local_ba(slam.m, st, SlamConfig(use_idp_ba=False), slam.cam, slam.ext,
+                                slam.gw, slam.noise) == (slam.m, None)
 
 
 def test_upload_keeps_uint8_and_accepts_tensors():

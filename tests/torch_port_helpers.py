@@ -2,6 +2,7 @@
 small track-and-map profile and the bootstrap profile with their cached runs,
 conversion of the port's MapState to the JAX package's, field-by-field
 comparison of two maps, and the replay of the JAX package's RANSAC samples."""
+import contextlib
 import copy
 import functools
 
@@ -212,3 +213,48 @@ def revisit_run():
     finally:
         tracking_ctl.recompute_bias_from_window, tracking_ctl.relocalize = orig
     return seq, cam, ext, slam, rv, cap
+
+
+@contextlib.contextmanager
+def jax_features():
+    """While active, the port's ORB extraction hands out the JAX package's
+    feature table of the same image (`mc_slam_tpu.frontend.extractor.extract`,
+    converted): a run of the port then sees exactly the features a run of
+    the JAX package sees (its own differ from them in a few descriptor bits,
+    from the pyramid's 1e-4)."""
+    from mc_slam_tpu.frontend import extractor as jex
+    from mc_slam_tpu_torch.frontend import extractor as tex
+    orig = tex.extract
+
+    def extract(img, n_features=1024, n_levels=8, **kw):
+        jf = jex.extract(jnp.asarray(img.cpu().numpy(), jnp.float32), n_features=n_features,
+                         n_levels=n_levels, **kw)
+        return convert.to_torch(tex.Features, jax.tree_util.tree_map(np.asarray, jf)._asdict(),
+                                img.device)
+
+    tex.extract = extract
+    try:
+        yield
+    finally:
+        tex.extract = orig
+
+
+@contextlib.contextmanager
+def jax_init_samples(seed=0):
+    """While active, the port's two-view attempts draw the 200 x 8 samples
+    that a JAX SlamSystem seeded `seed` draws in its attempts of the same
+    order (one split of its key per attempt that reaches the RANSAC)."""
+    from mc_slam_tpu_torch.geometry import init2view as tinit
+    orig = tinit.draw_samples
+    state = {"key": jax.random.PRNGKey(seed)}
+
+    def draw(w, n_iters=200, generator=None):
+        state["key"], sub = jax.random.split(state["key"])
+        return torch.as_tensor(jax_samples(sub, jnp.asarray(w.cpu().numpy()), n_iters, 8),
+                               dtype=torch.int64, device=w.device)
+
+    tinit.draw_samples = draw
+    try:
+        yield
+    finally:
+        tinit.draw_samples = orig
