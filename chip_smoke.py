@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization,
-loop closing and depth sensors (RGB-D, stereo + IMU) on one NVIDIA GPU.
+loop closing, the mesh-sharded whole-map solvers, checkpoint and resume, and
+depth sensors (RGB-D, stereo + IMU) on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,7 +66,16 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     padded to 32) against the dense one: keyframe positions within 5 mm,
     final costs within 1 %, both cost curves never rising; ms, kernels
     launched and peak memory of each. Then the system's stage timers;
- 8. path 5, "euroc-revisit", on path 4's system (loop closing on since frame
+ 8. phase "mesh", the whole-map BA: on path 4's map, its landmarks spread
+    over the table so that both shards hold some and every free keyframe and
+    landmark moved by a seeded 3 cm draw, the pipeline's chunked VI BA with a
+    two-shard mesh on the card (`SlamSystem.enable_mesh`'s route:
+    `dist_gba.vi_gba_chunked_sharded`, the chunks split over the shards, one
+    reduction of the camera system an iteration) against the unsharded
+    `ba_chunked.vi_gba_chunked`: the unsharded BA moves a keyframe by 25 mm
+    or more, the two agree on keyframe positions within 1.5 mm and on final
+    costs within 0.002 %, no cost curve rising; distance, move, costs and ms;
+ 9. path 5, "euroc-revisit", on path 4's system (loop closing on since frame
     0, so every keyframe has its BoW histogram): 3 blank frames with IMU rows
     lose the camera (three "lost" events); the carried pose and gyro bias are
     corrupted (5 m away, bias off by 0.05 / 0.04 / 0.03 rad/s); frames 200-264
@@ -77,7 +87,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     relocalization starts a new IMU chain; loop detection ran ("lc_diag"
     events; each is printed, no closure is expected of a camera that tracks
     the old landmarks);
- 9. phase "loop", a planted seam at full table width: the keyframes inserted
+10. phase "loop", a planted seam at full table width: the keyframes inserted
     since frame 264 get their own copies of the landmarks they observe and a
     drift of 0.2 m / 3 degrees that grows along the chain (`plant_seam`); then
     `loopctl.try_close_loop` on the revisit keyframes in turn until one closes.
@@ -88,7 +98,19 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     rises; kernel == twin on the guided verification's search. Prints ms and
     flagged syncs of detect, Sim3 batch, verify, pose graph, both fusion
     rounds and the whole-map BA, and the kernels each launches when run alone;
-10. path 6, "euroc-rgbd": a new `SlamSystem` (IMU off, cull_min_obs 2, loop
+11. phase "mesh", the essential graph: that closure's pose graph again,
+    edge-sharded over two shards (`close_loop(mesh=)`,
+    `dist_posegraph.optimize_pose_graph_dist`) against the unsharded one:
+    keyframes within 2 mm, no cost curve rising; distance, costs and ms;
+12. phase "checkpoint", on the system path 5 left (loop edges, a broken IMU
+    chain, histogram ids): `io.checkpoint.save_system` to a temporary
+    directory, `load_system` into a fresh `SlamSystem` on the card; every
+    MapState table bit-equal, the host state and the trajectory equal; then
+    the resumed system tracks the 20 clone frames after the replayed stretch
+    (the first carries the IMU rows since the keyframe it resumed at). Fails
+    on any difference, a lost frame, no kernel launch, or an ATE over those
+    frames of 5 cm or more; prints save / load ms and the bytes written;
+13. path 6, "euroc-rgbd": a new `SlamSystem` (IMU off, cull_min_obs 2, loop
     closing on) fed the first 120 clone frames with their rendered depth
     through `track(img, t, depth=)`: the map starts metric from frame 0's
     depth, every pose solve and window BA carries the u_right row, every
@@ -98,7 +120,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     BA, landmark overflow 0, ATE under 2 cm and the alignment scale within
     0.05 of 1 (tests/test_e2e_depth.py's metric gate), kernel == twin on the
     real searches of 3 frames;
-11. path 7, "euroc-stereo-vi": the same clone frames with a rectified right
+14. path 7, "euroc-stereo-vi": the same clone frames with a rectified right
     image (`render_right`: the left camera moved 0.11 m along its x axis),
     `track(img, t, imu, img_right=)` with the IMU and VI init at 5 s, then 20
     VI frames: `stereo_depth`, the 3-row residual in the visual and VI pose
@@ -117,9 +139,11 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -135,9 +159,11 @@ from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import euroc_noise
 from mc_slam_tpu_torch.eval.ate import ate_rmse, horn_align
 from mc_slam_tpu_torch.geometry.sim3solver import Sim3Result
+from mc_slam_tpu_torch.io import checkpoint
 from mc_slam_tpu_torch import lie as tlie
 from mc_slam_tpu_torch.pipeline import (loopclosing, loopctl, mapping, mapping_ctl, system,
                                         tracking, tracking_ctl)
+from mc_slam_tpu_torch.parallel import dist_ba
 from mc_slam_tpu_torch.pipeline.pipebase import LOST
 from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
 from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix, empty_map,
@@ -798,6 +824,9 @@ def run_refine_and_chunked(res, seq: Sequence, p: Profile):
 
 BG_CORRUPTION = np.array([0.05, -0.04, 0.03], np.float32)   # tests/test_e2e_reloc.py:85
 RELOC_MAX_FRAMES = 5        # a "reloc" event within so many replayed frames
+# PnP hypotheses a relocalization candidate on path 5 (SlamConfig.pnp_iters is
+# the JAX package's 256, at which this scene relocalizes in 9 of 40 attempts)
+PATH5_PNP_ITERS = 2048
 RELOC_POS_TOL = 0.05        # m, against the system's own pose at the same source frame
 SEAM_ROT_DEG = 3.0          # the planted drift: a rotation about a skew axis through the
 SEAM_T = (0.16, -0.10, 0.07)   # newest revisit keyframe, and a translation of 0.20 m
@@ -807,7 +836,7 @@ SEAM_POSE_TOL = 0.03        # m, revisit keyframes after the closure against bef
 
 
 def run_revisit(res, seq: Sequence, p: Profile, src_start: int, n_replay: int,
-                n_blank: int = 3, recorder=None):
+                n_blank: int = 3, recorder=None, pnp_iters: int = PATH5_PNP_ITERS):
     """Path 5 up to the live detection, on the system `run_bootstrap` left:
     `n_blank` blank frames (with IMU rows) lose the camera; the carried pose
     and gyro bias are then corrupted as tests/test_e2e_reloc.py does (pose far
@@ -817,8 +846,10 @@ def run_revisit(res, seq: Sequence, p: Profile, src_start: int, n_replay: int,
     Returns a dict of what happened (frames, events, the source frame of the
     relocalization, keyframes inserted after it); raises on the gates: LOST
     after the blank frames with one "lost" event each, a "reloc" event within
-    RELOC_MAX_FRAMES, the bias window completed, no frame lost afterwards."""
+    RELOC_MAX_FRAMES, the bias window completed, no frame lost afterwards.
+    The system draws `pnp_iters` PnP hypotheses a candidate from here on."""
     slam = res["slam"]
+    slam.cfg.pnp_iters = pnp_iters
     st = slam.st
     dev = slam.device
     cuda = dev.type == "cuda"
@@ -1116,6 +1147,20 @@ def run_loop_phase(slam, revisit, spread, recorder=None, idx=None):
                        for k, v in curves.items()})
 
 
+def closure_args(slam, lp):
+    """What the loop event of `run_loop_phase` handed to `close_loop`: (the
+    verified Sim3 as a dict, the same as a body-frame Sim3Result, the active
+    slots when the loop closed, the earlier loop edges)."""
+    st, ext, dev = slam.st, slam.ext, slam.device
+    cur, cand, meas = lp["cur"], lp["cand"], lp["measured"]
+    cv = dict(c=cand, s=meas["s"], R=meas["R"], t=meas["t"], n_in=lp["closed"]["n_inliers"])
+    s_c, R_c, t_c = loopctl._sim3_tensors(cv, dev)
+    body = Sim3Result(True, *loopctl.body_sim3(ext, s_c, R_c, t_c), None, cv["n_in"])
+    # the keyframes as they were when the loop closed (the closure added none)
+    edges = [e for e in st.loop_edges if set(e[:2]) != {cur, cand}]
+    return cv, body, list(st.kf_slots), edges
+
+
 def loop_stage_replays(slam, lp):
     """The stages of the loop event that `run_loop_phase` closed, as closures
     that run each ALONE on the planted map (pure functions of the map; the
@@ -1125,17 +1170,12 @@ def loop_stage_replays(slam, lp):
     st, cfg, dev = slam.st, slam.cfg, slam.device
     cam, ext, loop = slam.cam, slam.ext, slam._loopctx
     m1, cur, cand = lp["m_planted"], lp["cur"], lp["cand"]
-    meas = lp["measured"]
-    cv = dict(c=cand, s=meas["s"], R=meas["R"], t=meas["t"], n_in=lp["closed"]["n_inliers"])
+    cv, body, slots, edges = closure_args(slam, lp)
     cands = torch.as_tensor([cand] * loopctl.N_CAND, dtype=torch.int64, device=dev)
     bars = torch.as_tensor([loopctl.BAR_STREAKED] * loopctl.N_CAND, device=dev)
     grp = torch.as_tensor(loopctl.verify_group(st, cfg, loop, cand), dtype=torch.int64,
                           device=dev)
     s_c, R_c, t_c = loopctl._sim3_tensors(cv, dev)
-    body = Sim3Result(True, *loopctl.body_sim3(ext, s_c, R_c, t_c), None, cv["n_in"])
-    # the keyframes as they were when the loop closed (the closure added none)
-    slots = list(st.kf_slots)
-    edges = [e for e in st.loop_edges if set(e[:2]) != {cur, cand}]
     state = {}
 
     def posegraph():
@@ -1172,6 +1212,234 @@ def loop_stage_replays(slam, lp):
         ("whole-map BA (force_all, no prune)", gba),
         ("fusion round 2 (2 x 2 keyframes)", fuse("gba", "f2", 2)),
     ]
+
+
+# ---------------------------------------------------------------------------
+# The phases "mesh" and "checkpoint"
+# ---------------------------------------------------------------------------
+
+MESH_PERTURB = 0.03         # m, the seeded offsets that move path 4's map off its optimum
+MESH_DP_TOL = 1.5e-3        # m, sharded against unsharded keyframe positions: ~10 x the
+                            # largest gap an H100 has shown here (0.113 mm)
+MESH_DCOST_TOL = 2e-5       # relative final cost, sharded against unsharded (~10 x 1.8e-6)
+MESH_MOVE_MIN = 2.5e-2      # m, the least keyframe move of the unsharded BA (~17 x MESH_DP_TOL)
+MESH_PG_TOL = 2e-3          # m, the sharded pose graph's keyframes (the loop event's parity)
+CKPT_FRAMES = 20            # clone frames the resumed system tracks
+
+
+def two_shard_mesh(device, axis="mp"):
+    """A mesh of two shards on one device (how one card exercises the
+    sharding: each shard's partial system, the one reduction, the local
+    back-substitution)."""
+    return dist_ba.make_mesh(axis=axis, devices=[device, device])
+
+
+def _timed_ms(fn, cuda):
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if cuda:
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def perturbed_map(m, act, seed=0, scale=MESH_PERTURB):
+    """`m` with every keyframe of `act` but the first (the whole-map BA's
+    gauge) and every active landmark moved by a seeded normal draw of `scale`
+    m a coordinate: the BA then has millimetres to centimetres to undo, where
+    a converged map leaves it micrometres."""
+    g = torch.Generator().manual_seed(seed)
+    dev = m.mp_pos.device
+    kf = torch.zeros(m.K, 1)
+    kf[list(act)[1:]] = 1.0
+    dP = (torch.randn(m.K, 3, generator=g) * scale * kf).to(dev)
+    dX = (torch.randn(m.P, 3, generator=g) * scale).to(dev) * m.mp_active[:, None].to(dP.dtype)
+    return m._replace(kf_ns=m.kf_ns._replace(P=m.kf_ns.P + dP), mp_pos=m.mp_pos + dX)
+
+
+def spread_landmarks(m):
+    """`m` with its active landmarks moved to slots spread evenly over the
+    table (the j-th of n to slot j * P // n; the keyframes' `kf_mp` follow):
+    the same map under other landmark ids. New landmarks take the lowest
+    free slots, so a map that has not filled half its table keeps the upper
+    half of the landmark range empty, and the whole-map BA's shards, which
+    own equal ranges of the table, would leave all but the first with
+    nothing to reduce."""
+    act = m.mp_active.cpu().numpy()
+    old = np.concatenate([np.nonzero(act)[0], np.nonzero(~act)[0]])
+    n, P = int(act.sum()), m.P
+    spots = (np.arange(n, dtype=np.int64) * P) // max(n, 1)
+    rest = np.setdiff1d(np.arange(P), spots)
+    new_of_old = np.empty(P, np.int64)
+    new_of_old[old] = np.concatenate([spots, rest])
+    dev = m.mp_pos.device
+    inv = torch.as_tensor(np.argsort(new_of_old), device=dev)      # old slot of each new one
+    remap = torch.as_tensor(new_of_old, dtype=torch.int32, device=dev)
+    kf_mp = torch.where(m.kf_mp >= 0, remap[m.kf_mp.clamp(min=0).to(torch.int64)], m.kf_mp)
+    return m._replace(kf_mp=kf_mp, **{f: getattr(m, f)[inv] for f in m._fields
+                                      if f.startswith("mp_")})
+
+
+def run_mesh_gba(slam, mesh):
+    """Phase "mesh", the whole-map BA: the pipeline's landmark-chunked VI BA
+    (`mapping_ctl.global_ba_chunked`, no prune) on the system's map with its
+    landmarks spread over the shards (`spread_landmarks`) and moved off its
+    optimum (`perturbed_map`), with the mesh set, as `enable_mesh` sets
+    it (`dist_gba.vi_gba_chunked_sharded`), against the same call without it
+    (`ba_chunked.vi_gba_chunked`), each warmed up once and then timed.
+    Returns a dict; raises when they differ past MESH_DP_TOL in a keyframe
+    position or MESH_DCOST_TOL in the final cost, when the unsharded BA moves
+    no keyframe by MESH_MOVE_MIN (the comparison would not see a shard's
+    missing share), a shard holds no landmark, or a cost curve rises."""
+    cuda = slam.device.type == "cuda"
+    act = list(slam.st.kf_slots)
+    m0 = perturbed_map(spread_landmarks(slam.m), act)
+    per_shard = [int(x) for x in m0.mp_active.reshape(mesh.size, -1).sum(1).cpu()]
+    if min(per_shard) == 0:
+        raise AssertionError(f"active landmarks per shard {per_shard}")
+    out = {}
+    for name, st in (("single", slam.st), ("sharded", dataclasses.replace(slam.st, mesh=mesh))):
+        args = (m0, st, slam.cfg, slam.cam, slam.ext, slam.gw, slam.noise, act)
+        fn = lambda: mapping_ctl.global_ba_chunked(*args, prune=False)
+        fn()
+        (m2, stats), ms = _timed_ms(fn, cuda)
+        h = torch.cat([stats.costs, m2.kf_ns.P[act].reshape(-1)]).cpu().numpy()
+        n_c = stats.costs.shape[0]
+        if not np.isfinite(h[:n_c]).all() or np.any(np.diff(h[:n_c]) > 0):
+            raise AssertionError(f"{name} whole-map BA: cost curve {h[:n_c]}")
+        out[name] = dict(ms=ms, cost0=float(h[0]), cost=float(h[n_c - 1]),
+                         P=h[n_c:].reshape(-1, 3), pts=m2.mp_pos)
+    move = float(np.abs(out["single"]["P"] - m0.kf_ns.P[act].cpu().numpy()).max())
+    dP = float(np.abs(out["sharded"]["P"] - out["single"]["P"]).max())
+    act_pts = m0.mp_active
+    dX = float((out["sharded"]["pts"] - out["single"]["pts"])[act_pts].abs().max())
+    dcost = abs(out["sharded"]["cost"] - out["single"]["cost"]) / out["single"]["cost"]
+    if not move >= MESH_MOVE_MIN:
+        raise AssertionError(f"the unsharded whole-map BA moved the keyframes by {move} m only")
+    if not (dP < MESH_DP_TOL and dcost < MESH_DCOST_TOL):
+        raise AssertionError(f"sharded whole-map BA against unsharded: keyframe positions "
+                             f"{dP} m, final costs {dcost}")
+    strip = lambda d: {k: v for k, v in d.items() if k not in ("P", "pts")}
+    return dict(n_kf=len(act), shards=mesh.size, shard_landmarks=per_shard, move_m=move, dP_m=dP, dX_m=dX,
+                dcost_rel=dcost, single=strip(out["single"]), sharded=strip(out["sharded"]))
+
+
+def run_mesh_posegraph(slam, lp, mesh_e):
+    """Phase "mesh", the essential graph: the pose-graph correction of the
+    loop phase's closure (`close_loop` on the planted map, as the event ran
+    it) with the edge-sharded `dist_posegraph.optimize_pose_graph_dist`
+    (`mesh=`) against `posegraph.optimize_pose_graph`. Returns a dict; raises
+    when a keyframe differs by MESH_PG_TOL or more, or a cost curve rises."""
+    cuda = slam.device.type == "cuda"
+    cv, body, slots, edges = closure_args(slam, lp)
+    out = {}
+    for name, mesh in (("single", None), ("sharded", mesh_e)):
+        (m2, costs), ms = _timed_ms(lambda: loopclosing.close_loop(
+            lp["m_planted"], slots, lp["cur"], lp["cand"], body, slam.cam, fix_scale=True,
+            loop_edges=edges, mesh=mesh, kf_ids=slam.st.kf_id_host, curve=True), cuda)
+        c = costs.cpu().numpy()
+        if not np.isfinite(c).all() or np.any(np.diff(c) > 1e-6 * np.abs(c[:-1])):
+            raise AssertionError(f"{name} pose graph: cost curve {c}")
+        out[name] = dict(ms=ms, cost0=float(c[0]), cost=float(c[-1]), P=m2.kf_ns.P[slots])
+    dP = float((out["sharded"]["P"] - out["single"]["P"]).abs().max())
+    if not dP < MESH_PG_TOL:
+        raise AssertionError(f"sharded pose graph against unsharded: keyframes {dP} m apart")
+    strip = lambda d: {k: v for k, v in d.items() if k != "P"}
+    return dict(n_kf=len(slots), shards=mesh_e.size, dP_m=dP, single=strip(out["single"]),
+                sharded=strip(out["sharded"]))
+
+
+def _flat_map(m):
+    out = {}
+    for f, v in m._asdict().items():
+        if isinstance(v, torch.Tensor):
+            out[f] = v
+        else:
+            out.update({f"{f}.{g}": x for g, x in v._asdict().items()})
+    return out
+
+
+def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CKPT_FRAMES):
+    """The phase "checkpoint" on the system path 5 left (loop edges, a broken
+    IMU chain, histogram ids): `io.checkpoint.save_system` into a temporary
+    directory, `load_system` into a fresh SlamSystem on the same device, every
+    MapState table bit-equal and every host field equal, the trajectory
+    unchanged; then the resumed system tracks the `n_frames` clone frames from
+    `first` on (the frame after the replayed stretch). The load reseats tracking at the newest keyframe, so
+    the first of them carries the IMU rows since that keyframe's frame (the
+    frames in between are dropped, as a stream that resumes drops them).
+    Returns a dict; raises on any difference, a lost frame, no kernel launch,
+    or an ATE over those frames of RELOC_POS_TOL or more."""
+    dev = slam.device
+    cuda = dev.type == "cuda"
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "slam.npz")
+        _, save_ms = _timed_ms(lambda: checkpoint.save_system(path, slam), cuda)
+        size = sum(os.path.getsize(path + ext) for ext in ("", ".bow.npz", ".traj.npz",
+                                                           ".track.npz")
+                   if os.path.exists(path + ext))
+        new, new_ms = _timed_ms(lambda: system.SlamSystem(
+            slam.cam, dataclasses.replace(slam.cfg), Tbc=TBC, device=dev), cuda)
+        _, load_ms = _timed_ms(lambda: checkpoint.load_system(path, new), cuda)
+    a, b = _flat_map(slam.m), _flat_map(new.m)
+    bad = [k for k in a if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k])]
+    if bad:
+        raise AssertionError(f"tables not bit-equal after the round trip: {bad}")
+    st, st2 = slam.st, new.st
+    fields = ("kf_slots", "last_kf_slot", "last_kf_frame", "n_kf", "vi_inited", "first_kf_time",
+              "free_slots", "next_fresh_slot", "broken_chain_slots", "loop_edges",
+              "n_loops_closed", "kf_id_host")
+    bad = [f for f in fields if getattr(st, f) != getattr(st2, f)]
+    bad += [f"kf_imu_raw[{k}]" for k in st.kf_imu_raw
+            if k not in st2.kf_imu_raw or not torch.equal(st.kf_imu_raw[k], st2.kf_imu_raw[k])]
+    if new.frame_id != slam.frame_id or new.state != slam.state:
+        bad.append("frame_id / state")
+    if new.loop.hist_ids != slam.loop.hist_ids or not torch.equal(new.loop.hists,
+                                                                  slam.loop.hists):
+        bad.append("loop detector")
+    if not torch.equal(new.gw, slam.gw):
+        bad.append("gw")
+    tr_a, tr_b = slam.get_trajectory(), new.get_trajectory()
+    if len(tr_a) != len(tr_b) or any(x[0] != y[0] or not np.array_equal(x[1], y[1])
+                                     for x, y in zip(tr_a, tr_b)):
+        bad.append("trajectory")
+    if bad:
+        raise AssertionError(f"host state differs after the round trip: {bad}")
+    # the resumed system goes on from the newest keyframe's frame
+    k = st2.last_kf_slot
+    t_kf = st2.kf_time_host[k]
+    src_kf = next(f["src"] for f in rv["frames"]
+                  if f["src"] is not None and abs(f["t"] - t_kf) < 1e-4)
+    fdt = float(seq.times[1] - seq.times[0])
+    srcs = list(range(first, first + n_frames))
+    times = [t_kf + (i - src_kf) * fdt for i in srcs]
+    frame_ms, n_ok = [], 0
+    hamming_top2_windowed.launches = 0
+    for j, i in enumerate(srcs):
+        rows = (np.concatenate([seq.imu[x] for x in range(src_kf + 1, i + 1)]) if j == 0
+                else seq.imu[i])
+        ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows), cuda)
+        frame_ms.append(ms)
+        n_ok += int(ok)
+    launches = hamming_top2_windowed.launches
+    tr = [x for x in new.get_trajectory() if x[0] >= times[0] - 1e-6]
+    ate = ate_rmse(np.asarray([x[0] for x in tr]), np.asarray([x[1] for x in tr]),
+                   np.asarray(times), seq.P[first:first + n_frames], with_scale=True)
+    if n_ok != n_frames or new.n_lost_frames:
+        raise AssertionError(f"the resumed system tracked {n_ok} of {n_frames} frames, "
+                             f"{new.n_lost_frames} lost")
+    if cuda and launches < 2 * n_frames:     # the CPU runs the twin: nothing launches
+        raise AssertionError(f"kernel launched {launches} times for {n_frames} frames")
+    if not ate["rmse"] < RELOC_POS_TOL:
+        raise AssertionError(f"ATE over the resumed frames {ate}")
+    return dict(save_ms=save_ms, load_ms=load_ms, new_system_ms=new_ms, bytes=size,
+                n_tables=len(a), kf_slots=len(st.kf_slots), loop_edges=list(st.loop_edges),
+                broken_chain_slots=sorted(st.broken_chain_slots), free_slots=list(st.free_slots),
+                n_hist_ids=len(slam.loop.hist_ids), traj_rows=len(tr_b), resume_kf=k,
+                resume_src=src_kf, frames=srcs, n_tracked=n_ok, launches=launches,
+                frame_ms_median=float(np.median(frame_ms)), ate=ate,
+                keyframes_after=new.n_kf - slam.n_kf)
 
 
 @contextlib.contextmanager
@@ -1790,7 +2058,8 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     """Path 5 on the card, on the system path 4 left: `run_revisit` and its
     gates, the live detections, then the phase "loop" (`run_loop_phase`) with
     the kernel counts of its stages run alone. Returns (detail dict, kernel
-    launches of the path, max kernel-vs-twin error on the recorded searches)."""
+    launches of the path, max kernel-vs-twin error on the recorded searches,
+    `run_revisit`'s and `run_loop_phase`'s dicts)."""
     slam = res["slam"]
     st = slam.st
     torch.cuda.synchronize()
@@ -1809,7 +2078,8 @@ def revisit_phase(res, seq: Sequence, p: Profile):
                     f"{np.median(lost_ms):.1f} ms, {fr[1]['syncs']} flagged syncs); frames "
                     f"{REVISIT_SRC}..{REVISIT_SRC + REVISIT_FRAMES - 1} fed again: relocalized "
                     f"at replayed frame {rv['i_reloc']} (source frame {rv['src_reloc']}) against "
-                    f"keyframe {rv['reloc']['kf']} with {rv['reloc']['n_in']} inliers, "
+                    f"keyframe {rv['reloc']['kf']} with {rv['reloc']['n_in']} inliers "
+                    f"({slam.cfg.pnp_iters} PnP hypotheses a candidate), "
                     f"{f_reloc['ms']:.1f} ms, {f_reloc['syncs']} flagged syncs, "
                     f"{rv['reloc_pos_err'] * 1e3:.1f} mm from the pose estimated there "
                     f"(< {RELOC_POS_TOL * 1e3:.0f})")
@@ -1881,7 +2151,7 @@ def revisit_phase(res, seq: Sequence, p: Profile):
               "window_frame_ms": float(np.median(win_ms)),
               "vi_frame_ms": float(np.median(vi_ms)), "peak_device_MiB": peak_mb,
               "seconds": time.time() - t0, "timers": slam.timers.summary()}
-    return detail, launches, err
+    return detail, launches, err, rv, lp
 
 
 def main():
@@ -2033,11 +2303,56 @@ def main():
     detail4, launches_sys, err, res4 = bootstrap_phase("path4", seq_boot, EUROC_SYSTEM, cam,
                                                        dev, refine=True)
     max_err = max(max_err, err)
+    slam4 = res4["slam"]
+    mesh, mesh_e = two_shard_mesh(dev), two_shard_mesh(dev, axis="e")
+    t0 = time.time()
+    mg = run_mesh_gba(slam4, mesh)
+    _phase("mesh", f"whole-map VI BA over {mg['n_kf']} keyframes, chunks split over "
+                   f"{mg['shards']} shards on {dev} (dist_gba.vi_gba_chunked_sharded) against "
+                   f"ba_chunked.vi_gba_chunked on the spread, perturbed map (landmarks a "
+                   f"shard {mg['shard_landmarks']}, the unsharded BA moves a keyframe by "
+                   f"{mg['move_m'] * 1e3:.2f} mm >= {MESH_MOVE_MIN * 1e3:g}): keyframe positions "
+                   f"within {mg['dP_m'] * 1e3:.4f} mm (< {MESH_DP_TOL * 1e3:g}), landmarks within "
+                   f"{mg['dX_m'] * 1e3:.4f} mm, final costs {mg['sharded']['cost']:.3f} / "
+                   f"{mg['single']['cost']:.3f} ({mg['dcost_rel'] * 100:.5f} %, < "
+                   f"{MESH_DCOST_TOL * 100:g}); {mg['sharded']['ms']:.1f} ms sharded, "
+                   f"{mg['single']['ms']:.1f} ms single ({time.time() - t0:.1f} s)")
 
     # ---- phase 7: path 5, kidnap / relocalization / loop closing on path 4's system ----
-    detail5, launches_rev, err = revisit_phase(res4, seq_boot, EUROC_SYSTEM)
+    detail5, launches_rev, err, rv5, lp5 = revisit_phase(res4, seq_boot, EUROC_SYSTEM)
     max_err = max(max_err, err)
-    del res4
+    t0 = time.time()
+    mp = run_mesh_posegraph(slam4, lp5, mesh_e)
+    _phase("mesh", f"the loop phase's essential graph ({mp['n_kf']} keyframes, 40 LM "
+                   f"iterations), edges split over {mp['shards']} shards "
+                   f"(dist_posegraph.optimize_pose_graph_dist) against "
+                   f"posegraph.optimize_pose_graph: keyframes within {mp['dP_m'] * 1e3:.4f} mm "
+                   f"(< {MESH_PG_TOL * 1e3:g}), costs {mp['sharded']['cost0']:.5f} -> "
+                   f"{mp['sharded']['cost']:.5f} / {mp['single']['cost0']:.5f} -> "
+                   f"{mp['single']['cost']:.5f}; {mp['sharded']['ms']:.1f} ms sharded, "
+                   f"{mp['single']['ms']:.1f} ms single ({time.time() - t0:.1f} s)")
+
+    # ---- phase "checkpoint": save, load into a fresh system, track on ----
+    t0 = time.time()
+    ck = run_checkpoint_phase(slam4, seq_boot, rv5, REVISIT_SRC + REVISIT_FRAMES)
+    launches_ckpt = ck["launches"]
+    _phase("checkpoint", f"save_system {ck['save_ms']:.1f} ms, {ck['bytes']} bytes "
+                         f"(map, BoW side file, trajectory side file); a fresh SlamSystem "
+                         f"{ck['new_system_ms']:.1f} ms; load_system {ck['load_ms']:.1f} ms; "
+                         f"{ck['n_tables']} tables bit-equal, host state equal ("
+                         f"{ck['kf_slots']} keyframes, loop edges {ck['loop_edges']}, broken "
+                         f"chain slots {ck['broken_chain_slots']}, free slots "
+                         f"{ck['free_slots']}, {ck['n_hist_ids']} histogram ids), "
+                         f"{ck['traj_rows']} trajectory rows kept")
+    _phase("checkpoint", f"resumed at keyframe {ck['resume_kf']} (source frame "
+                         f"{ck['resume_src']}): frames {ck['frames'][0]}..{ck['frames'][-1]} "
+                         f"tracked {ck['n_tracked']} of {len(ck['frames'])}, 0 lost, "
+                         f"{ck['keyframes_after']} keyframes inserted, launches {launches_ckpt}, "
+                         f"ms/frame median {ck['frame_ms_median']:.1f}; ATE "
+                         f"{ck['ate']['rmse'] * 1e3:.2f} mm over those frames (< "
+                         f"{RELOC_POS_TOL * 1e3:.0f}), alignment scale "
+                         f"{ck['ate']['scale']:.4f} ({time.time() - t0:.1f} s)")
+    del res4, slam4, lp5
 
     # ---- phase 8: path 6, RGB-D from the clone's rendered depth, no IMU ----
     detail6, launches_rgbd, err = depth_phase(
@@ -2061,7 +2376,7 @@ def main():
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (launches_loc + launches_map + launches_boot + launches_sys
-                     + launches_rev + launches_rgbd + launches_stereo),
+                     + launches_rev + launches_ckpt + launches_rgbd + launches_stereo),
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
@@ -2084,7 +2399,7 @@ def main():
                         "frame_ms_median": float(np.median(res2["frame_ms"])),
                         "peak_device_MiB": peak_mb},
               "path3": detail3, "path4": detail4, "path5": detail5, "path6": detail6,
-              "path7": detail7,
+              "path7": detail7, "mesh": {"gba": mg, "posegraph": mp}, "checkpoint": ck,
               "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
           flush=True)

@@ -30,14 +30,23 @@ _ASSET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..",
                       "mc_slam_tpu", "assets", "vocab.npz")
 
 
+def load_vocab(path, device=None):
+    """(vocab (W, 256) int8 +/-1, idf (W,) float32 or None) from a vocabulary
+    file: packed bits, n_words, optional idf (the shipped asset's format, which
+    tools/train_vocab.py writes)."""
+    dev = resolve(device)
+    with np.load(path) as z:
+        bits = np.unpackbits(z["bits"], axis=1)[:, :256]
+        idf = torch.from_numpy(z["idf"].astype(np.float32)).to(dev) if "idf" in z else None
+    return torch.from_numpy(bits.astype(np.int8) * 2 - 1).to(dev), idf
+
+
 def load_default_vocab(generator: torch.Generator | None = None, device=None):
     """The shipped trained vocabulary ((W, 256) int8 +/-1; the ORBvoc
     artifact's role); a random vocabulary when the asset is absent."""
     dev = resolve(device)
     if os.path.exists(_ASSET):
-        z = np.load(_ASSET)
-        bits = np.unpackbits(z["bits"], axis=1)[:, :256]
-        return torch.from_numpy(bits.astype(np.int8) * 2 - 1).to(dev)
+        return load_vocab(_ASSET, dev)[0]
     return random_vocab(generator, device=dev)
 
 
@@ -46,9 +55,7 @@ def load_default_idf(device=None):
     vocabulary; None when the asset has none."""
     dev = resolve(device)
     if os.path.exists(_ASSET):
-        z = np.load(_ASSET)
-        if "idf" in z:
-            return torch.from_numpy(z["idf"].astype(np.float32)).to(dev)
+        return load_vocab(_ASSET, dev)[1]
     return None
 
 

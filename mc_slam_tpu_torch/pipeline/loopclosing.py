@@ -26,6 +26,7 @@ from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.device import resolve
 from mc_slam_tpu_torch.frontend import bow, matching
 from mc_slam_tpu_torch.geometry import pnp, sim3solver
+from mc_slam_tpu_torch.parallel import dist_ba, dist_posegraph
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, _set_drop, covisibility_matrix
 from mc_slam_tpu_torch.solver import posegraph
 from mc_slam_tpu_torch.solver.sim3opt import optimize_sim3
@@ -268,11 +269,11 @@ def close_loop(m: MapState, kf_slots, slot_cur, slot_loop, sim3_lc, cam,
 
     sim3_lc: a Sim3Result mapping the loop keyframe's BODY frame into the
     current keyframe's (s, R, t tensors or numbers). loop_edges: [(slot_a,
-    slot_b)] of earlier closures. kf_ids: host {slot: frame id} (read from
-    the device when not given). One host read (the covisibility matrix).
+    slot_b)] of earlier closures. mesh: a `parallel.dist_ba.Mesh`: the graph
+    is solved edge-sharded over it (`dist_posegraph`). kf_ids: host {slot:
+    frame id} (read from the device when not given). One host read (the
+    covisibility matrix).
     Returns the new MapState (and the pose graph's cost curve when `curve`)."""
-    if mesh is not None:
-        raise NotImplementedError("the edge-sharded essential graph (mesh=) is not ported")
     slots = list(kf_slots)
     K = len(slots)
     idx_of = {s: i for i, s in enumerate(slots)}
@@ -362,8 +363,15 @@ def close_loop(m: MapState, kf_slots, slot_cur, slot_loop, sim3_lc, cam,
         s=torch.where(nbm, s_corr, s0), R=torch.where(nbm[:, None, None], R_corr, R0),
         t=torch.where(nbm[:, None], t_corr, t0), ei=ei_a, ej=ej_a,
         s_m=sm, R_m=Rm, t_m=tm, w=w, free=free)
-    R_new, s_new, t_new, _, costs = posegraph.optimize_pose_graph(
-        g, iters=40, fix_scale=fix_scale, curve=True)
+    if mesh is not None:
+        # edge-sharded over the device mesh: each shard owns a range of edges,
+        # one reduction of the 7K-dim normal equations per iteration
+        R_new, s_new, t_new, _, costs = dist_ba.to_device(
+            dist_posegraph.optimize_pose_graph_dist(mesh, g, iters=40, fix_scale=fix_scale,
+                                                    curve=True), dev)
+    else:
+        R_new, s_new, t_new, _, costs = posegraph.optimize_pose_graph(
+            g, iters=40, fix_scale=fix_scale, curve=True)
 
     # body poses back: R_wk = R_new^T, P = -1/s R^T t; velocities turn with
     # their keyframe's correction

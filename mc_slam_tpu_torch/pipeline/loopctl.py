@@ -266,7 +266,7 @@ def apply_closure(m: MapState, st: mapping_ctl.MappingState, cfg, ts, loop: Loop
     with loop.stage("lc_posegraph"):
         m, pg_costs = loopclosing.close_loop(
             m, list(st.kf_slots), slot, cand, res, cam, fix_scale=st.vi_inited,
-            loop_edges=st.loop_edges, kf_ids=st.kf_id_host, curve=True)
+            loop_edges=st.loop_edges, mesh=st.mesh_e, kf_ids=st.kf_id_host, curve=True)
     pair = (min(cand, slot), max(cand, slot))
     if pair not in {(min(a, b), max(a, b)) for a, b in st.loop_edges}:
         st.loop_edges.append((cand, slot))

@@ -43,6 +43,7 @@ import torch
 from mc_slam_tpu_torch.camera import Camera
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise, preintegrate
+from mc_slam_tpu_torch.parallel import dist_ba, dist_gba
 from mc_slam_tpu_torch.pipeline import mapping
 from mc_slam_tpu_torch.slam_map.mapstate import (MapState, _set_drop,
                                                  covisibility_weights)
@@ -82,6 +83,8 @@ class MappingState:
     n_loops_closed: int = 0
     last_loop_nkf: int = -100              # n_kf at the last closure (the 10-keyframe cooldown)
     sensor_depth: bool = False             # stereo / RGB-D input seen: u_right rows in every BA
+    mesh: object = None                    # parallel.dist_ba.Mesh of the sharded whole-map BA
+    mesh_e: object = None                  # ... and of the edge-sharded essential graph
 
 
 class EventResult(NamedTuple):
@@ -298,7 +301,8 @@ def local_ba(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
     re-classification (the reference's global BA), the visual form before VI
     init, the XYZ VI form after: up to 40 keyframes dense (`ba.visual_ba` /
     `ba_vi.vi_ba`, padded to a multiple of 8 keyframes), above that
-    landmark-chunked (`global_ba_chunked`). With a depth sensor every form
+    landmark-chunked (`global_ba_chunked`; after VI init sharded over `st.mesh`
+    when `SlamSystem.enable_mesh` set one). With a depth sensor every form
     carries the u_right rows.
     Returns (m, BAStats or None when the window has fewer than 2 keyframes);
     `overflow` is 0 (these solve over the whole landmark table)."""
@@ -414,6 +418,10 @@ def global_ba_chunked(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camer
     obs = gather_obs(m, ks, n_real, with_ur=st.sensor_depth)
     bf = stereo_bf(cam, cfg)
     n_chunks = max(1, m.P // chunk)
+    if st.mesh is not None:
+        # the chunk count divides the mesh (the JAX package's rounding; the
+        # chunks get smaller, none is empty)
+        n_chunks = int(math.ceil(n_chunks / st.mesh.size)) * st.mesh.size
     cols = [obs.cam[:, None].to(torch.float32), obs.pt[:, None].to(torch.float32),
             obs.uv, obs.inv_sigma2[:, None], obs.valid[:, None]]
     if obs.ur is not None:
@@ -429,9 +437,14 @@ def global_ba_chunked(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camer
         edges = ba_vi.edges_from_map(m.kf_preint, ks, packed[2], packed[3], packed[4],
                                      noise.sigma_bg, noise.sigma_ba)
         ns_w = NavState(*[a[ks] for a in m.kf_ns])
-        ns2, pts2, cost, costs = ba_chunked.vi_gba_chunked(
-            ns_w, m.mp_pos, cobs, edges, cam, ext, gw, free_t, pt_mask, iters=BA_ITERS,
-            bf=bf)
+        if st.mesh is not None:
+            ns2, pts2, cost, costs = dist_ba.to_device(dist_gba.vi_gba_chunked_sharded(
+                st.mesh, ns_w, m.mp_pos, cobs, edges, cam, ext, gw, free_t, pt_mask,
+                iters=BA_ITERS, bf=bf), dev)
+        else:
+            ns2, pts2, cost, costs = ba_chunked.vi_gba_chunked(
+                ns_w, m.mp_pos, cobs, edges, cam, ext, gw, free_t, pt_mask, iters=BA_ITERS,
+                bf=bf)
         kf_ns2 = NavState(*[_set_drop(full, ks_real, w) for full, w in zip(m.kf_ns, ns2)])
     else:
         P2, R2, pts2, cost, costs = ba_chunked.visual_gba_chunked(

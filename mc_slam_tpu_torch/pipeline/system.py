@@ -26,9 +26,10 @@ VI-init scale); from then on every pose solve and BA carries the u_right
 row, every keyframe adds its nearest unmatched depth points, and the VI
 window BA takes its XYZ form. With and without the IMU.
 
-Not ported, and loud about it: the device mesh (`enable_mesh` raises), and
-not ported at all: the asynchronous frame pipeline (pair fusion, deferred
-harvest of frames, events, Sim3 batches and verifications, rollback).
+`enable_mesh` shards the whole-map VI BA and the essential graph over a
+device mesh (`parallel/`). Not ported: the asynchronous frame pipeline (pair
+fusion, deferred harvest of frames, events, Sim3 batches and verifications,
+rollback).
 
 Also here: the monocular two-view bootstrap `try_initialize`
 (SlamSystem._try_initialize), as a module function of explicit state.
@@ -47,6 +48,7 @@ from mc_slam_tpu_torch.frontend import bow, extractor, matching, stereo
 from mc_slam_tpu_torch.geometry import init2view
 from mc_slam_tpu_torch.imu.navstate import navstate_identity
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise, euroc_noise
+from mc_slam_tpu_torch.parallel import dist_ba
 from mc_slam_tpu_torch.pipeline import (loopclosing, loopctl, mapping, mapping_ctl, tracking,
                                         tracking_ctl)
 from mc_slam_tpu_torch.pipeline.pipebase import LOST, NO_IMAGES_YET, NOT_INITIALIZED, OK
@@ -93,6 +95,12 @@ class SlamConfig:
     refresh_stats: bool = True      # descriptors, normals, scale bands after fusion
     stereo_baseline: float = 0.11   # metres (EuRoC-like rig): bf = fx * baseline
     cull_min_obs: int = 3           # 3 mono, 2 for depth sensors (nThObs)
+    # PnP RANSAC hypotheses a relocalization candidate (and in the
+    # reference-keyframe fallback): the JAX package's pnp_ransac default. Its
+    # 6-point DLT is near-degenerate on the near-planar point sets of a room's
+    # walls, so at 256 few clean samples reach the 12-inlier bar (PERF.md has
+    # the success rate by count); the hypotheses are one batch on the card
+    pnp_iters: int = 256
     seed: int = 0
 
 
@@ -218,7 +226,9 @@ class SlamSystem:
     `state`, `m`, `vi_inited`, `gw`, `kf_slots`, `n_kf`, `frame_id`,
     `n_lost_frames`, `events`, `timers`, `traj`, `last_ns`, `last_pose`,
     `viinit_log`, `loop`, `enable_loop_closing`, `n_loops_closed`,
-    `loop_edges`, `reloc_buf`, `reloc_window`, `sensor_depth`. `st` (mapping_ctl.MappingState) and `ts`
+    `loop_edges`, `reloc_buf`, `reloc_window`, `sensor_depth`, `mesh`, `mesh_e`;
+    `enable_mesh`; `io.checkpoint.save_system` / `load_system` persist and
+    restore it. `st` (mapping_ctl.MappingState) and `ts`
     (tracking_ctl.TrackState, None until the map is initialized) hold the
     state itself."""
 
@@ -347,8 +357,26 @@ class SlamSystem:
     def enable_loop_closing(self, on):
         self._loopctx.enabled = bool(on)
 
+    mesh = property(lambda self: self.st.mesh)
+    mesh_e = property(lambda self: self.st.mesh_e)
+
     def enable_mesh(self, mesh=None, mesh_e=None):
-        raise NotImplementedError("the mesh-sharded whole-map optimizations are not ported")
+        """Route the whole-map optimizations through a device mesh
+        (`parallel.dist_ba.Mesh`): the chunked VI GBA becomes landmark-sharded
+        (`parallel.dist_gba`: per-shard Schur partials, one reduction of the
+        camera system an iteration) and the loop's essential graph
+        edge-sharded (`parallel.dist_posegraph`, over `mesh_e`). With no
+        arguments: every visible CUDA device, a no-op with one. A mesh may
+        name one device twice (`dist_ba.make_mesh(devices=["cuda:0"] * 2)`);
+        its first device should be the system's, where the state lives."""
+        if mesh is None:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 0
+            if n <= 1:
+                return
+            mesh = dist_ba.make_mesh(n)
+            mesh_e = dist_ba.make_mesh(n, axis="e")
+        self.st.mesh = mesh
+        self.st.mesh_e = mesh_e
 
     def set_localization_mode(self, on: bool):
         """Activate / DeactivateLocalizationMode: track against the frozen

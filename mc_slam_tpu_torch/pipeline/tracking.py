@@ -209,26 +209,17 @@ def track_frame_vi(m: MapState, feats: Features, uv_ideal, cam: Camera,
     return ns2, torch.where(inlier, feat_mp, -1), torch.sum(matched), n_in, H_marg
 
 
-# RANSAC hypotheses per relocalization candidate when the samples are drawn
-# here. The JAX package draws 256. Its 6-point DLT is near-degenerate on the
-# near-planar point sets that a room's walls give, so few clean samples reach
-# the 12-inlier bar and a relocalization can take many frames (PERF.md has the
-# counts by number of hypotheses). The hypotheses are one batch on the card,
-# so the port draws eight times as many; callers that pass `idx` choose their
-# own number.
-PNP_ITERS = 2048
-
-
 def reloc_candidates_batch(m: MapState, cand_slots, idx, desc_pm1, feat_valid,
                            feat_angle, xn, focal,
-                           generator: torch.Generator | None = None):
+                           generator: torch.Generator | None = None, n_iters: int = 256):
     """Relocalization candidate evaluation for C keyframes as one batched
     pass (Tracking::Relocalization's per-candidate loop): mutual descriptor
     matching of the frame against each candidate's landmark features, then
     PnP RANSAC on the matched 2D-3D pairs.
 
     cand_slots: (C,) int64; idx: (C, n, 6) int64 sample indices, or None to
-    draw PNP_ITERS of them from `generator`; xn: (F, 2) normalized ideal
+    draw n_iters of them a candidate from `generator` (the JAX package's
+    pnp_ransac draws 256; `SlamConfig.pnp_iters`); xn: (F, 2) normalized ideal
     coordinates.
     Returns (C, 15) rows [n_match, pnp_ok, pnp_inliers, R_cw (9), t_cw (3)]:
     ONE host read decides which candidate (if any) to refine."""
@@ -240,7 +231,7 @@ def reloc_candidates_batch(m: MapState, cand_slots, idx, desc_pm1, feat_valid,
     Xw = m.mp_pos[torch.clamp(torch.gather(mp_k, 1, midx), 0, m.P - 1).to(torch.int64)]
     w = okm.to(torch.float32)
     if idx is None:
-        idx = pnp.draw_samples(generator, w, PNP_ITERS, 6)
+        idx = pnp.draw_samples(generator, w, n_iters, 6)
     res = pnp.pnp_ransac(idx, Xw, xn, w, focal, min_inliers=12)
     C = cand_slots.shape[0]
     return torch.cat([torch.sum(okm, dim=-1).to(torch.float32)[:, None],

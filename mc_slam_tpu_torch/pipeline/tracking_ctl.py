@@ -389,7 +389,7 @@ def track_reference_kf(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfi
     prior, the frame's descriptors are matched against the last keyframe's
     landmark features, PnP RANSAC gives a pose, and the map is searched from
     it (15 px; a depth frame's u_right rows in the pose solve). idx: (n, 6)
-    PnP sample indices (tracking.PNP_ITERS of them drawn from `generator`
+    PnP sample indices (cfg.pnp_iters of them drawn from `generator`
     when None). Two host reads: [matches, PnP ok], then the inliers.
     Returns (TrackResult, inliers) or (None, 0)."""
     k = st.last_kf_slot
@@ -402,7 +402,7 @@ def track_reference_kf(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfi
         angle_a=feats.angle, angle_b=m.kf_angle[k])
     w = okm.to(torch.float32)
     if idx is None:
-        idx = pnp.draw_samples(generator, w, tracking.PNP_ITERS, 6)
+        idx = pnp.draw_samples(generator, w, cfg.pnp_iters, 6)
     Xw = m.mp_pos[torch.clamp(mp_k[midx], 0, m.P - 1).to(torch.int64)]
     res = pnp.pnp_ransac(idx, Xw, _normalized(cam, uv), w, cam.fx, min_inliers=12)
     h = torch.stack([torch.sum(okm).to(torch.float32), res.ok.to(torch.float32)]).cpu().numpy()
@@ -436,7 +436,7 @@ def relocalize(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig, ts: T
     and marks the next keyframe as the start of a new IMU chain.
 
     detector: the `LoopDetector` (vocabulary, idf, histogram table). idx:
-    (5, n, 6) PnP sample indices, tracking.PNP_ITERS each drawn from `generator`
+    (5, n, 6) PnP sample indices, cfg.pnp_iters each drawn from `generator`
     when None. Host
     reads: the scores, the packed candidate rows, and the inlier count of each
     refinement that is tried (none for a candidate that fails PnP).
@@ -457,7 +457,8 @@ def relocalize(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig, ts: T
     cand_p = (cand + [cand[0]] * C_PAD)[:C_PAD]
     packed = tracking.reloc_candidates_batch(
         m, torch.as_tensor(cand_p, dtype=torch.int64, device=dev), idx, feats.desc_pm1,
-        feats.valid, feats.angle, _normalized(cam, uv), cam.fx, generator=generator)
+        feats.valid, feats.angle, _normalized(cam, uv), cam.fx, generator=generator,
+        n_iters=cfg.pnp_iters)
     host = packed.cpu().numpy()
     ts.reloc_diag = dict(cand=cand, score=[round(float(scores[act.index(k)]), 3) for k in cand],
                          rows=host[:len(cand), :3].astype(int).tolist(), refined=[])

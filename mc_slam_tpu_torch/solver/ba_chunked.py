@@ -279,24 +279,57 @@ def _embed15(A6, Nc):
     return out
 
 
-def vi_gba_chunked(ns0: NavState, pts0, cobs: ChunkedObs, edges: IMUEdges, camera: Camera,
+def _on(x, dev):
+    """A NamedTuple of tensors (Camera, Extrinsics) on `dev`."""
+    return type(x)(*[a.to(dev) if isinstance(a, torch.Tensor) else a for a in x])
+
+
+def vi_gba_chunked(ns0: NavState, pts0, cobs, edges: IMUEdges, camera: Camera,
                    ext: factors.Extrinsics, gw, free_cam, pt_mask, iters: int = 10,
-                   lam0: float = 1e-4, bf=0.0, ks=None):
+                   lam0: float = 1e-4, bf=0.0, ks=None, reduce=None):
     """Whole-map VI BA (GlobalBundleAdjustmentNavStatePRV,
     src/Optimizer.cpp:629) with the landmark-chunked Schur complement; one
-    round. Returns (ns, pts, cost, costs), `costs` as in visual_gba_chunked."""
+    round. Returns (ns, pts, cost, costs), `costs` as in visual_gba_chunked.
+
+    cobs: a ChunkedObs (global chunk ids `ks`), or a list of (ChunkedObs,
+    chunk ids) groups that own contiguous chunk ranges in order, each on its
+    own device (`parallel.dist_gba`'s shards). Every group reduces its chunks
+    into a partial Schur camera system and cost with the state copied to its
+    device, `reduce` sums the groups' partials on pts0's device (one
+    reduction per linearization; None: a single group), the camera step is
+    solved there and every group back-substitutes its own landmarks."""
+    groups = [(cobs, ks)] if isinstance(cobs, ChunkedObs) else list(cobs)
+    if reduce is None:
+        if len(groups) != 1:
+            raise ValueError("several observation groups need a reduce function")
+        reduce = lambda parts: parts[0]
+    dev0 = pts0.device
     Nc = ns0.P.shape[0]
-    C = pts0.shape[0] // cobs.cam.shape[0]
+    C = pts0.shape[0] // sum(o.cam.shape[0] for o, _ in groups)
     edges = edges._replace(i=edges.i.to(torch.int64), j=edges.j.to(torch.int64))
+    consts = [(_on(camera, o.cam.device), _on(ext, o.cam.device), free_cam.to(o.cam.device),
+               pt_mask.to(o.cam.device)) for o, _ in groups]
 
     def cam_factor_system(ns):
-        H = torch.zeros((Nc, DC_VI, Nc, DC_VI), dtype=pts0.dtype, device=pts0.device)
-        g = torch.zeros((Nc, DC_VI), dtype=pts0.dtype, device=pts0.device)
-        cost = torch.zeros((), dtype=pts0.dtype, device=pts0.device)
+        H = torch.zeros((Nc, DC_VI, Nc, DC_VI), dtype=pts0.dtype, device=dev0)
+        g = torch.zeros((Nc, DC_VI), dtype=pts0.dtype, device=dev0)
+        cost = torch.zeros((), dtype=pts0.dtype, device=dev0)
         prv, bias = _imu_edge_factors(ns, edges, gw)
         H, g, cost = lm.accumulate_cam_factors(H, g, cost, prv, free_cam)
         H, g, cost = lm.accumulate_cam_factors(H, g, cost, bias, free_cam)
         return H, g, cost
+
+    def on_groups(x, valid, fn):
+        """fn(obs, ks, get_PR, pts, camera, ext, free, pt_mask) for every
+        group, on the group's device."""
+        ns, pts = x
+        out = []
+        for (o, k), v, (cam_d, ext_d, fc_d, ptm_d) in zip(groups, valid, consts):
+            dev = o.cam.device
+            P, R = ns.P.to(dev), ns.R.to(dev)
+            out.append(fn(o._replace(valid=v), k, lambda ci: (P[ci], R[ci]), pts.to(dev),
+                          cam_d, ext_d, fc_d, ptm_d))
+        return out
 
     def retract(x, dx):
         ns, pts = x
@@ -304,35 +337,34 @@ def vi_gba_chunked(ns0: NavState, pts0, cobs: ChunkedObs, edges: IMUEdges, camer
         return retract_states(ns, dxc), pts + dxp
 
     def make_fns(valid):
-        vobs = cobs._replace(valid=valid)
-
         def cost_fn(x):
-            ns, pts = x
-            c = _chunk_cost(lambda ci: (ns.P[ci], ns.R[ci]), pts, vobs, camera, ext, bf, C, ks)
-            return c + cam_factor_system(ns)[2]
+            c = reduce(on_groups(x, valid, lambda o, k, get_PR, pts, cam_d, ext_d, fc, pm:
+                                 _chunk_cost(get_PR, pts, o, cam_d, ext_d, bf, C, k)))
+            return c + cam_factor_system(x[0])[2]
 
         def linearize_solve(x, lam):
-            ns, pts = x
-            get_PR = lambda ci: (ns.P[ci], ns.R[ci])
-            S6, g6, d6, _ = _scan_reduce(get_PR, pts, vobs, camera, ext, bf, free_cam, Nc,
-                                         C, lam, ks)
-            Hc, gc, _ = cam_factor_system(ns)
+            S6, g6, d6, _ = reduce(on_groups(
+                x, valid, lambda o, k, get_PR, pts, cam_d, ext_d, fc, pm: _scan_reduce(
+                    get_PR, pts, o, cam_d, ext_d, bf, fc, Nc, C, lam, k)))
+            Hc, gc, _ = cam_factor_system(x[0])
             diag = _embed15(d6.reshape(Nc, DV), Nc).reshape(-1)
             dxc = _solve_reduced(_embed15(S6, Nc), _embed15(g6, Nc), diag, Hc, gc, lam,
                                  free_cam, Nc, DC_VI)
-            dxp = _scan_backsub(get_PR, pts, vobs, camera, ext, bf, free_cam, Nc, C, lam,
-                                dxc, pt_mask, ks)
-            return dxc, dxp
+            # the groups own contiguous chunk ranges: their steps in group
+            # order are the landmark table's order
+            dxp = on_groups(x, valid, lambda o, k, get_PR, pts, cam_d, ext_d, fc, pm:
+                            _scan_backsub(get_PR, pts, o, cam_d, ext_d, bf, fc, Nc, C, lam,
+                                          dxc.to(pts.device), pm, k))
+            return dxc, (dxp[0] if len(dxp) == 1 else torch.cat([d.to(dev0) for d in dxp]))
 
         return linearize_solve, retract, cost_fn
 
     def classify(x, valid0):
-        ns, pts = x
-        return _chunk_classify(lambda ci: (ns.P[ci], ns.R[ci]), pts,
-                               cobs._replace(valid=valid0), camera, ext, bf, C, ks)
+        return on_groups(x, valid0, lambda o, k, get_PR, pts, cam_d, ext_d, fc, pm:
+                         _chunk_classify(get_PR, pts, o, cam_d, ext_d, bf, C, k))
 
     curve = []
     (ns, pts), cost, _ = lm.lm_two_phase(
-        (ns0, pts0), make_fns, cobs.valid, classify, iters, lam0=lam0, enable=False,
-        curve=curve)
+        (ns0, pts0), make_fns, [o.valid for o, _ in groups], classify, iters, lam0=lam0,
+        enable=False, curve=curve)
     return ns._replace(R=lie.so3_normalize_fast(ns.R)), pts, cost, torch.stack(curve)

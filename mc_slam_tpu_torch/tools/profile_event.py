@@ -262,11 +262,11 @@ def profile_revisit(chip_smoke, dev, smi, out):
                                                       det.vocab, idf=det.idf), rows)
     cand = torch.as_tensor(([hit["kf"]] * 5), dtype=torch.int64, device=dev)
     xn = tracking_ctl._normalized(cam, uv)
-    packed = measure(f"reloc: reloc_candidates_batch (5 x mutual match + {tracking.PNP_ITERS} "
+    packed = measure(f"reloc: reloc_candidates_batch (5 x mutual match + {cfg.pnp_iters} "
                      f"PnP hypotheses)",
                      lambda: tracking.reloc_candidates_batch(
                          m, cand, None, feats.desc_pm1, feats.valid, feats.angle, xn, cam.fx,
-                         generator=gen()), rows)
+                         generator=gen(), n_iters=cfg.pnp_iters), rows)
     P_b, R_b = tracking_ctl._pnp_to_body(ext, packed[0, 3:12].reshape(3, 3), packed[0, 12:15])
     measure("reloc: track_frame_visual from the PnP pose (15 px, 4 px; 2 kernel launches)",
             lambda: tracking.track_frame_visual(m, feats, uv, cam, ext, P_b, R_b,
@@ -277,7 +277,7 @@ def profile_revisit(chip_smoke, dev, smi, out):
     from mc_slam_tpu_torch import camera as tcam
     from mc_slam_tpu_torch.frontend import extractor
     m_l, st_l, ts_l = attempts[0][:3]
-    reloc_rate, default_hyp = {}, tracking.PNP_ITERS
+    reloc_rate, default_hyp = {}, cfg.pnp_iters
     study = []
     for src in range(chip_smoke.REVISIT_SRC, chip_smoke.REVISIT_SRC + 5):
         f_s = extractor.extract(torch.from_numpy(seq.imgs[src]).to(dev), n_features=p.n_feat,
@@ -285,7 +285,7 @@ def profile_revisit(chip_smoke, dev, smi, out):
         study.append((f_s, tcam.undistort_points(cam, f_s.xy)))
     try:
         for n_hyp in (256, 1024, 2048, 4096):
-            tracking.PNP_ITERS = n_hyp
+            cfg.pnp_iters = n_hyp
             hits = [orig[0](m_l, copy.deepcopy(st_l), cfg, copy.copy(ts_l), det, f_s, uv_s, 0.0,
                             cam, ext, generator=torch.Generator(device=dev).manual_seed(seed))
                     is not None for f_s, uv_s in study for seed in range(8)]
@@ -294,7 +294,7 @@ def profile_revisit(chip_smoke, dev, smi, out):
                   f"relocalized (frames {chip_smoke.REVISIT_SRC}.."
                   f"{chip_smoke.REVISIT_SRC + 4} x 8 seeds)", flush=True)
     finally:
-        tracking.PNP_ITERS = default_hyp
+        cfg.pnp_iters = default_hyp
     m_w, ts_w = window[-1]
     measure("bias window: recompute_bias_from_window (20 frames, 10 LM iterations)",
             lambda: orig[1](m_w, copy.copy(ts_w), cam, ext, slam.noise), rows)

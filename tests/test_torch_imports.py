@@ -113,6 +113,39 @@ def test_place_recognition_modules_are_covered(mod):
     assert proc.returncode == 0, proc.stderr
 
 
+PERSIST_MESH_MODULES = ("io.checkpoint", "io.stream", "io.native_loader", "viz.snapshot",
+                        "parallel.dist_ba", "parallel.dist_gba", "parallel.dist_posegraph",
+                        "bench_problems", "tools.run_euroc", "tools.run_mono",
+                        "tools.train_vocab")
+
+
+@pytest.mark.parametrize("mod", PERSIST_MESH_MODULES)
+def test_persistence_io_and_mesh_modules_are_covered(mod):
+    """Every module of the checkpoint / host I/O / mesh slice is among those
+    the import test walks, names neither jax nor the JAX package in an import
+    line, and imports by itself in a fresh interpreter without pulling either
+    in (the snapshot imports matplotlib only when it draws)."""
+    assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
+    src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
+    imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
+    assert imports and not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
+                               for l in imports)
+    proc = _run(f"import sys, mc_slam_tpu_torch.{mod}\n"
+                "bad = [m for m in ('jax', 'mc_slam_tpu', 'matplotlib') if m in sys.modules]\n"
+                "assert not bad, bad\n")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_graft_entry_torch_imports_no_jax():
+    """__graft_entry_torch__.py imports, and runs its entry point, without
+    jax or the JAX package."""
+    proc = _run("import sys, __graft_entry_torch__ as g\n"
+                "fn, args = g.entry(device='cpu')\n"
+                "assert float(fn(*args)) > 0\n"
+                "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_vocabulary_loads_without_the_jax_package():
     proc = _run("import sys\n"
                 "from mc_slam_tpu_torch.frontend import bow\n"

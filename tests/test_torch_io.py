@@ -167,3 +167,42 @@ def test_clone_from_disk_equals_clone_in_memory(tmp_path, harden):
     np.testing.assert_allclose(t_gt, t_gt2, atol=1e-6)
     np.testing.assert_allclose(P_gt, P_gt2, atol=1e-6)
     assert eval_clone.have_png_codec()
+
+
+def test_clone_span_equals_whole_clone(tmp_path):
+    """tools/eval_clone.py's run across calls: `frames_span` renders only the
+    frames lo .. hi-1 of the whole clone and makes the others' draws all the
+    same, so its frames, IMU rows and ground truth are those of the whole
+    clone rendered in memory (the hardened profile: noise, flicker and
+    occluders come from the generator). Four views rendered ahead, as on the
+    card."""
+    args = _clone_args(tmp_path, duration=0.3)
+    whole, t_gt, P_gt = eval_clone.frames_in_memory(args, 6)
+    whole = list(whole)
+    span, t_gt2, P_gt2 = eval_clone.frames_span(args, 6, 2, 5, workers=4)
+    span = list(span)
+    assert len(span) == 3
+    for (t0, i0, r0), (t1, i1, r1) in zip(whole[2:5], span):
+        assert t0 == t1
+        np.testing.assert_array_equal(i0, i1)
+        np.testing.assert_array_equal(r0, r1)
+    np.testing.assert_array_equal(t_gt, t_gt2)
+    np.testing.assert_allclose(P_gt, P_gt2, atol=1e-12)
+
+
+def test_eval_clone_seam_step_against_the_run_steps():
+    """tools/eval_clone.py's score(): a jump planted at a seam stands out of
+    the run's one-frame error steps away from the seams (its median, 99th
+    percentile and max come from the same aligned error array)."""
+    n, seam = 200, 120
+    t = np.arange(n) * 0.05
+    P_gt = np.stack([np.cos(t), np.sin(t), 0.1 * t], 1)
+    P_est = P_gt + np.random.default_rng(0).normal(scale=1e-4, size=P_gt.shape)
+    P_est[seam:] += [0.01, 0.0, 0.0]
+    traj = [(t[i], P_est[i], np.eye(3)) for i in range(n)]
+    calls = [{"frames": [0, seam]}, {"frames": [seam, n]}]
+    _, _, seams = eval_clone.score(traj, t, P_gt, calls, [])
+    sm, = seams
+    assert sm["frame"] == seam and sm["frame_steps"] == n - 2
+    assert sm["step_m"] > 5 * sm["frame_step_p99_m"] and sm["frame_steps_at_least"] == 0
+    assert sm["frame_step_median_m"] <= sm["frame_step_p99_m"] <= sm["frame_step_max_m"]

@@ -208,3 +208,28 @@ def test_try_close_loop_matches_jax(monkeypatch):
     for c in out.curves.values():
         c = np.asarray(c).reshape(len(c), -1)
         assert np.isfinite(c).all() and np.all(np.diff(c, axis=0) <= 1e-6 * np.abs(c[:-1]))
+
+
+def test_chip_smoke_mesh_and_checkpoint_phases():
+    """chip_smoke.py's phases "mesh" and "checkpoint" on the CPU at the BOOT
+    profile, with their own gates: the sharded whole-map BA on the
+    bootstrapped map and the sharded pose graph of the loop phase's closure
+    against the unsharded ones (two shards on the CPU), then the checkpoint
+    round trip of the system after the closure (loop edge, broken chain) and
+    6 resumed frames, none lost, within path 5's ATE limit."""
+    from torch_port_helpers import boot_run
+    seq, cam, ext, slam0, rv, _ = revisit_run()
+    cpu = torch.device("cpu")
+    mg = chip_smoke.run_mesh_gba(boot_run()[3]["slam"], chip_smoke.two_shard_mesh(cpu))
+    assert mg["dP_m"] < chip_smoke.MESH_DP_TOL and mg["shards"] == 2
+    slam = copy.deepcopy(slam0)
+    src_end = REVISIT_SRC + REVISIT_FRAMES - 1
+    spread = [s for s in rv["kf_before"] if slam.st.kf_id_host[s] > src_end]
+    lp = chip_smoke.run_loop_phase(slam, rv["new_kf"], spread)
+    mp = chip_smoke.run_mesh_posegraph(slam, lp, chip_smoke.two_shard_mesh(cpu, "e"))
+    assert mp["dP_m"] < chip_smoke.MESH_PG_TOL and mp["sharded"]["cost"] < mp["sharded"]["cost0"]
+    ck = chip_smoke.run_checkpoint_phase(slam, seq, rv, REVISIT_SRC + REVISIT_FRAMES,
+                                         n_frames=6)
+    assert ck["loop_edges"] and ck["broken_chain_slots"] and ck["n_tracked"] == 6
+    assert ck["traj_rows"] == len(slam.get_trajectory())
+    assert ck["ate"]["rmse"] < chip_smoke.RELOC_POS_TOL

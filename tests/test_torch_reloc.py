@@ -158,6 +158,44 @@ def test_relocalize_matches_jax(monkeypatch):
     assert ts2.state == LOST and ts2.reloc_buf is None and not st2.chain_break_pending
 
 
+def test_default_config_draws_256_hypotheses_and_matches_jax(monkeypatch):
+    """F17's count: on the default SlamConfig a relocalization draws the JAX
+    package's 256 PnP hypotheses a candidate (pnp.pnp_ransac's default, taken
+    at mc_slam_tpu/pipeline/tracking.py:309), one batch of (5, 256, 6); given
+    the samples the JAX `_relocalize` draws (its key splits repeated), the
+    port relocalizes against the same keyframe with the same inliers
+    (within 2) and pose (1e-3)."""
+    import dataclasses
+    from mc_slam_tpu_torch.geometry import pnp
+    from mc_slam_tpu_torch.pipeline.system import SlamConfig
+    seq, cam, ext, slam, rv, cap = revisit_run()
+    m, st0, ts0 = cap["lost"]
+    st, ts = copy.deepcopy(st0), copy.copy(ts0)
+    cfg = dataclasses.replace(slam.cfg, pnp_iters=SlamConfig().pnp_iters)
+    assert cfg.pnp_iters == 256 and slam.cfg.pnp_iters == chip_smoke.PATH5_PNP_ITERS
+    f, uv = _frame(seq, cam, REVISIT_SRC)
+    js = _jax_lost_system(monkeypatch, cam, slam, m, st, ts)
+    _, sub = jax.random.split(js.key)
+    keys = jax.random.split(sub, 5)
+    drawn = []
+
+    def draw(generator, w, n_iters, k):
+        drawn.append((tuple(w.shape), n_iters, k))
+        return torch.from_numpy(np.stack([
+            jax_samples(keys[c], jnp.asarray(w[c].numpy(), jnp.float32), n_iters, k)
+            for c in range(w.shape[0])]).astype(np.int64))
+    monkeypatch.setattr(pnp, "draw_samples", draw)
+    t = 5.4
+    hit = tracking_ctl.relocalize(m, st, cfg, ts, slam.loop, f, uv, t, cam, ext,
+                                  generator=torch.Generator().manual_seed(0))
+    assert drawn == [((5, BOOT.n_feat), 256, 6)]
+    assert js._relocalize(_jfeats(f), jnp.asarray(uv.numpy()), t) and hit is not None
+    kind, detail = js.events[-1][1:]
+    assert kind == "reloc" and detail["kf"] == hit["kf"]
+    assert abs(detail["n_in"] - hit["n_in"]) <= 2
+    np.testing.assert_allclose(ts.P.numpy(), np.asarray(js.last_pose[0]), atol=1e-3)
+
+
 def test_track_reference_kf_matches_jax(monkeypatch):
     """The reference-keyframe fallback against `_track_reference_kf`: a frame
     4 frames before the last keyframe's, no motion prior given; same decision,

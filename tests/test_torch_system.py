@@ -37,9 +37,16 @@ def _system():
 
 
 def test_config_defaults_equal_the_jax_config():
+    """Every field of the JAX SlamConfig, with its default, in its order; the
+    port's one field more, `pnp_iters`, defaults to what the JAX package
+    draws where it has no field: pnp_ransac's own default."""
+    import inspect
+    from mc_slam_tpu.geometry import pnp as jpnp
     j, t = JSlamConfig(), SlamConfig()
     jf = {f.name: getattr(j, f.name) for f in dataclasses.fields(j)}
     tf = {f.name: getattr(t, f.name) for f in dataclasses.fields(t)}
+    assert tf.pop("pnp_iters") == inspect.signature(jpnp.pnp_ransac).parameters[
+        "n_iters"].default == 256
     assert tf == jf and list(tf) == list(jf)
     assert (pipebase.NO_IMAGES_YET, pipebase.NOT_INITIALIZED, pipebase.OK, pipebase.LOST) == \
         (jpipebase.NO_IMAGES_YET, jpipebase.NOT_INITIALIZED, jpipebase.OK, jpipebase.LOST)
@@ -134,8 +141,15 @@ def test_inputs_and_options_that_are_not_ported_raise():
     slam.enable_loop_closing = True
     assert slam.enable_loop_closing is True and slam.n_loops_closed == 0
     assert slam.loop.hists.shape == (slam.cfg.max_kf, 32768) and slam.loop_edges == []
-    with pytest.raises(NotImplementedError, match="mesh"):
-        slam.enable_mesh()
+    # the mesh is ported: with no argument and no second GPU nothing changes;
+    # a mesh given is kept (the sharded solvers: tests/test_torch_parallel.py)
+    slam.enable_mesh()
+    assert slam.mesh is None and slam.mesh_e is None
+    from mc_slam_tpu_torch.parallel import dist_ba
+    mesh = dist_ba.make_mesh(devices=["cpu", "cpu"])
+    slam.enable_mesh(mesh, mesh)
+    assert slam.mesh is mesh and slam.st.mesh_e is mesh
+    slam.st.mesh = slam.st.mesh_e = None
     # the XYZ form of the VI window BA is ported (use_idp_ba=False): a window
     # of one keyframe has nothing to solve
     st = mapping_ctl.MappingState(kf_slots=[0], last_kf_slot=0, vi_inited=True)
