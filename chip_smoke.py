@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization,
-loop closing, the mesh-sharded whole-map solvers, checkpoint and resume, and
-depth sensors (RGB-D, stereo + IMU) on one NVIDIA GPU.
+loop closing, the mesh-sharded whole-map solvers, checkpoint and resume,
+depth sensors (RGB-D, stereo + IMU), the batched multi-sequence step and the
+multi-host Schur solve on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -130,7 +131,32 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     costs finite and not rising, u_right rows in every window BA, the
     alignment scale within 0.2 of 1. Both paths print ms per frame (median,
     p90), ms per event, the stereo extraction + matching ms, launches and
-    flagged syncs.
+    flagged syncs;
+15. phase "multiseq" (BASELINE.json config #4, parallel/multiseq.py): 11
+    windows of the clone (starting at frames 0, 10, ..., 100), each with its
+    own map seeded as path 1's over its own frames, tracked as ONE batch:
+    10 `make_batched_step` steps (752x480, 1024 features, 8 levels, 16384
+    map points a map, 10 LM iterations), the projection-search kernel taking
+    all 11 problems in one launch a round. Fails unless: every window's
+    position RMSE against ground truth is under path 1's 2 cm; the same
+    windows tracked one at a time by the unbatched `track_frame_visual` agree
+    within 1e-3 m and 2 inliers (tests/test_multiseq.py's tolerances); the
+    kernel launched exactly 2 times a batched step (22 unbatched); the
+    batched kernel equals the batched twin exactly on the step's real
+    searches and on planted inputs at B=11 x 16384 x 1024, r = 4 / 15 / 40
+    px; 10 of the windows over a two-shard "seq" mesh on cuda:0 agree with
+    the unsharded step as above. Prints ms per batched step (median, p90),
+    aggregate frames/s against the sequential run's, launches of all kernels
+    a batched step against an unbatched frame's, peak memory, and the
+    batched kernel's warm / cold times beside 11 x the single problem's and
+    its bound;
+16. phase "multihost" (BASELINE.json config #5): tools/run_multihost_ba.py
+    --demo 2 (two ranks on cuda:0 over gloo, 4 shards a rank) and --demo 1
+    with nccl (one rank: the NCCL all_reduce runs on the card), both on the
+    JAX demo's problem and on one at the map's scale (132 keyframes, 16384
+    landmarks). Fails unless every rank's camera update is bit-equal to rank
+    0's and within 5e-4 of the single-process Schur solve; prints ms per
+    solve. Two ranks on two cards (NCCL across cards) need a second card.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1797,10 +1823,14 @@ def event_line(e):
             + (f"; keyframes culled {e['removed']}" if e["removed"] else ""))
 
 
-def planted_inputs(M, N, rng, device, width=752, height=480):
+def planted_inputs(M, N, rng, device, width=752, height=480, batch=None):
     """Random search inputs at the tracking shapes with exact ties planted:
     duplicated candidate descriptors (equal best at two columns), and queries
-    that copy a candidate's descriptor and position (distance 0)."""
+    that copy a candidate's descriptor and position (distance 0). With
+    `batch` = B, B such problems drawn in turn and stacked ((B, M, .))."""
+    if batch is not None:
+        probs = [planted_inputs(M, N, rng, device, width, height) for _ in range(batch)]
+        return {k: torch.stack([q[k] for q in probs]) for k in probs[0]}
     b_bits = rng.integers(0, 2, (N, 256))
     dup = rng.choice(N, size=N // 8, replace=False)
     b_bits[dup] = b_bits[rng.choice(N, size=N // 8)]
@@ -1837,8 +1867,9 @@ def check_pack(desc, pm1):
 
 def compare_kernel(inp, radius, level_tol=1):
     """Run hamming_top2_windowed (the kernel for CUDA inputs, the twin for CPU
-    inputs) and its twin on the same inputs; `best` must be equal everywhere,
-    `idx` and `second` where best < BIG (as tests/test_match_pallas.py).
+    inputs) and its twin on the same inputs, batched or not (a leading B on
+    every input: one launch); `best` must be equal everywhere, `idx` and
+    `second` where best < BIG (as tests/test_match_pallas.py).
     Returns (max_abs_err over the compared entries, n_rows_with_a_match)."""
     k = hamming_top2_windowed(inp["a_desc"], inp["a_pm1"], inp["a_uv"], inp["a_lvl"],
                               inp["a_valid"], inp["b_desc"], inp["b_pm1"],
@@ -1902,15 +1933,19 @@ def kernel_bound(inp, radius, level_tol=1):
     """The least milliseconds the card could take for this search: the larger
     of bytes over the memory rate (each input read once, each output written
     once) and operations over the issue rate (the gate for every valid pair,
-    the popcount for the pairs of these inputs that pass it).
+    the popcount for the pairs of these inputs that pass it). A batch (a
+    leading B) is B problems: bytes, pairs and passing pairs of each summed.
     Returns (bound_ms, bound_by, detail dict)."""
     from mc_slam_tpu_torch.frontend.matching import window_mask
-    M, N = inp["a_desc"].shape[0], inp["b_desc"].shape[0]
+    M, N = inp["a_desc"].shape[-2], inp["b_desc"].shape[-2]
+    B = inp["a_desc"].shape[0] if inp["a_desc"].dim() == 3 else 1
     gate = window_mask(inp["a_uv"], inp["b_uv"], radius, inp["a_lvl"], inp["b_lvl"],
-                       level_tol) & inp["a_valid"][:, None] & inp["b_valid"][None, :]
+                       level_tol) & inp["a_valid"][..., :, None] & inp["b_valid"][..., None, :]
     n_pass = int(gate.sum())
-    pairs = int(inp["a_valid"].sum()) * int(inp["b_valid"].sum())
-    n_bytes = (M + N) * (32 + 8 + 4 + 1) + 3 * 4 * M
+    del gate
+    pairs = int((inp["a_valid"].sum(-1).to(torch.int64)
+                 * inp["b_valid"].sum(-1).to(torch.int64)).sum())
+    n_bytes = B * ((M + N) * (32 + 8 + 4 + 1) + 3 * 4 * M)
     ops = pairs * GATE_OPS_PER_PAIR + n_pass * POPC_OPS_PER_PASS
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / SIMPLE_OPS_PER_S * 1e3
@@ -2154,6 +2189,274 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     return detail, launches, err, rv, lp
 
 
+# ---------------------------------------------------------------------------
+# phase "multiseq": B windows of the clone as one batched step
+# (parallel/multiseq.py, BASELINE.json config #4)
+
+MULTISEQ_STARTS = tuple(range(0, 101, 10))   # 11 windows: config #4's "all 11" sequences
+MULTISEQ_STEPS = 10         # frames tracked in each window after its seed frame
+MULTISEQ_ITERS = 10         # make_batched_step's default
+MULTISEQ_POS_TOL = 1e-3     # m, batched against unbatched (tests/test_multiseq.py)
+MULTISEQ_INLIER_TOL = 2     # inliers, the same test's tolerance
+MULTISEQ_MESH_B = 10        # windows over the two-shard "seq" mesh (B divides evenly)
+
+
+def window(seq: Sequence, s: int, n: int) -> Sequence:
+    """Frames s .. s+n-1 of `seq`."""
+    return Sequence(imgs=seq.imgs[s:s + n], depths=seq.depths[s:s + n], P=seq.P[s:s + n],
+                    R=seq.R[s:s + n], V=seq.V[s:s + n], imu=seq.imu[s:s + n],
+                    times=seq.times[s:s + n])
+
+
+def multiseq_maps(seq: Sequence, p: Profile, cam, ext, device, starts=MULTISEQ_STARTS,
+                  n_steps=MULTISEQ_STEPS):
+    """One localization map a window, seeded as path 1's (`build_map`) over
+    the window's own frames (keyframes at its frames 0 and kf_every, ...)."""
+    pw = dataclasses.replace(p, n_frames=n_steps + 1)
+    return [build_map(window(seq, s, n_steps + 1), pw, cam, ext, device)[0] for s in starts]
+
+
+def track_windows(step, ms, seq: Sequence, starts, device, batched=True,
+                  n_steps=MULTISEQ_STEPS, timed=False):
+    """Track frames s+1 .. s+n_steps of the windows `starts` with `step`
+    (make_batched_step's signature): batched, one call a frame for all
+    windows; else `starts` is one window and `ms` its own map. The first
+    prediction is the window's ground-truth pose at frame s moved by its
+    ground-truth velocity (what the IMU gives a live system), then the
+    velocity model (TrackWithMotionModel). Returns dict(P (n_steps, B, 3),
+    n_in (n_steps, B), ms per call)."""
+    sel = list(starts) if batched else starts[0]
+    P = _t(seq.P[sel], device)
+    R = _t(seq.R[sel], device)
+    dt = float(seq.times[1] - seq.times[0])
+    P0, R0 = P + _t(seq.V[sel], device) * dt, R
+    frames = {s + j: torch.from_numpy(seq.imgs[s + j]).to(device)
+              for s in starts for j in range(1, n_steps + 1)}
+    Ps, ns, ms_list = [], [], []
+    for j in range(1, n_steps + 1):
+        imgs = (torch.stack([frames[s + j] for s in starts]) if batched
+                else frames[starts[0] + j])
+        if timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        Pn, Rn, _, n_in = step(ms, imgs, P0, R0)
+        if timed:
+            torch.cuda.synchronize()
+            ms_list.append((time.perf_counter() - t0) * 1e3)
+        RT = R.transpose(-1, -2)
+        dP = (RT @ (Pn - P)[..., None])[..., 0]
+        dR = RT @ Rn
+        P, R = Pn, Rn
+        P0, R0 = P + (R @ dP[..., None])[..., 0], R @ dR
+        Ps.append(Pn)
+        ns.append(n_in)
+    P_all = torch.stack(Ps).cpu().numpy()
+    n_all = torch.stack(ns).cpu().numpy()
+    if not batched:
+        P_all, n_all = P_all[:, None], n_all[:, None]
+    return dict(P=P_all, n_in=n_all, ms=ms_list)
+
+
+def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, single_bound):
+    """The phase "multiseq" (see the module docstring). single_ms /
+    single_bound: phase 2's single-problem kernel times and bounds by radius,
+    for the batched kernel's comparison. Returns (detail dict, the batched
+    kernel's record fields, max kernel-vs-twin error)."""
+    from mc_slam_tpu_torch.parallel import multiseq
+    starts = MULTISEQ_STARTS
+    B = len(starts)
+    t0 = time.time()
+    maps = multiseq_maps(seq, p, cam, ext, dev)
+    ms = multiseq.stack_maps(maps)
+    n_pts = [int(m.mp_active.sum()) for m in maps]
+    _phase("multiseq", f"{B} windows (start frames {starts[0]}..{starts[-1]}), maps of "
+                       f"{min(n_pts)}..{max(n_pts)} / {p.max_mp} points stacked "
+                       f"({time.time() - t0:.1f} s)")
+    step = multiseq.make_batched_step(cam, ext, n_features=p.n_feat, n_levels=p.n_levels,
+                                      iters=MULTISEQ_ITERS)
+
+    def single_step(m, img, P0, R0):
+        f = extractor.extract(img, n_features=p.n_feat, n_levels=p.n_levels)
+        r = tracking.track_frame_visual(m, f, tcam.undistort_points(cam, f.xy), cam, ext,
+                                        P0, R0, iters=MULTISEQ_ITERS)
+        return r.P, r.R, r.feat_mp, r.n_inliers
+
+    # warm-up (allocator, cuBLAS / cuSOLVER handles at these shapes), then
+    # the measured batched run with every count set to 0
+    track_windows(step, ms, seq, starts, dev, n_steps=1)
+    track_windows(single_step, maps[0], seq, starts[:1], dev, batched=False, n_steps=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    hamming_top2_windowed.launches = 0
+    bat = track_windows(step, ms, seq, starts, dev, timed=True)
+    launches_batched = hamming_top2_windowed.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    # the same windows one at a time through the unbatched program
+    hamming_top2_windowed.launches = 0
+    t1 = time.perf_counter()
+    seqs = [track_windows(single_step, maps[b], seq, [s], dev, batched=False, timed=True)
+            for b, s in enumerate(starts)]
+    seq_s = time.perf_counter() - t1
+    launches_single = hamming_top2_windowed.launches
+    gt = np.stack([seq.P[s + 1:s + 1 + MULTISEQ_STEPS] for s in starts], axis=1)
+    rmse = np.sqrt(np.mean(np.sum((bat["P"] - gt) ** 2, axis=-1), axis=0))
+    P_single = np.concatenate([r["P"] for r in seqs], axis=1)
+    n_single = np.concatenate([r["n_in"] for r in seqs], axis=1)
+    dP = float(np.abs(bat["P"] - P_single).max())
+    dn = int(np.abs(bat["n_in"].astype(np.int64) - n_single.astype(np.int64)).max())
+    step_ms = np.asarray(bat["ms"])
+    single_frame_ms = np.concatenate([r["ms"] for r in seqs])
+    fps_batched = B * MULTISEQ_STEPS / (step_ms.sum() / 1e3)
+    fps_seq = B * MULTISEQ_STEPS / seq_s
+    _phase("multiseq", f"{MULTISEQ_STEPS} batched steps of {B} windows: position RMSE per "
+                       f"window {np.round(rmse * 1e3, 2).tolist()} mm (< "
+                       f"{RMSE_LIMIT_LOC * 1e3:g}); inliers min {bat['n_in'].min()} median "
+                       f"{np.median(bat['n_in']):.0f}; against the unbatched runs: positions "
+                       f"within {dP * 1e3:.4f} mm (< {MULTISEQ_POS_TOL * 1e3:g}), inliers "
+                       f"within {dn} (<= {MULTISEQ_INLIER_TOL})")
+    _phase("multiseq", f"kernel launches {launches_batched} ({launches_batched / MULTISEQ_STEPS:g}"
+                       f" a batched step) against {launches_single} unbatched "
+                       f"({launches_single / MULTISEQ_STEPS:g} a step of {B} frames); ms per "
+                       f"batched step median {np.median(step_ms):.2f} p90 "
+                       f"{np.percentile(step_ms, 90):.2f}; ms per unbatched frame median "
+                       f"{np.median(single_frame_ms):.2f}; aggregate {fps_batched:.1f} frames/s "
+                       f"batched against {fps_seq:.1f} sequential ({fps_batched / fps_seq:.2f}x); "
+                       f"peak device memory {peak_mb:.0f} MiB")
+    if not np.isfinite(bat["P"]).all() or rmse.max() >= RMSE_LIMIT_LOC:
+        raise AssertionError(f"multiseq position RMSE {rmse.tolist()} m (limit "
+                             f"{RMSE_LIMIT_LOC} m)")
+    if dP >= MULTISEQ_POS_TOL or dn > MULTISEQ_INLIER_TOL:
+        raise AssertionError(f"batched against unbatched: {dP} m, {dn} inliers")
+    if launches_batched != 2 * MULTISEQ_STEPS or launches_single != 2 * MULTISEQ_STEPS * B:
+        raise AssertionError(f"kernel launches {launches_batched} batched, "
+                             f"{launches_single} unbatched")
+    # launches of every kernel: one batched step against one unbatched frame
+    f1 = {s: torch.from_numpy(seq.imgs[s + 1]).to(dev) for s in starts}
+    P0 = _t(seq.P[list(starts)], dev)
+    R0 = _t(seq.R[list(starts)], dev)
+    imgs1 = torch.stack([f1[s] for s in starts])
+    _, k_batched = count_kernels(lambda: step(ms, imgs1, P0, R0))
+    _, k_single = count_kernels(lambda: single_step(maps[0], f1[starts[0]], P0[0], R0[0]))
+    _phase("multiseq", f"kernels and copies the card ran: {k_batched} for one batched step "
+                       f"of {B} windows, {k_single} for one unbatched frame")
+    # the batched kernel on the step's real searches
+    rec = SearchRecorder(keep_frames=1, timed=False)
+    orig = match_cuda.hamming_top2_windowed
+    match_cuda.hamming_top2_windowed = rec
+    try:
+        step(ms, imgs1, P0, R0)
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+    err_real, n_real = _real_search_check(rec)
+    shapes = sorted({tuple(c[1][0].shape) for c in rec.calls})
+    del rec
+    _phase("multiseq", f"batched kernel == batched twin on the {n_real} real searches of one "
+                       f"step (a_desc {shapes})")
+    # the batched kernel at B x the tracking shapes, planted ties
+    rng = np.random.default_rng(11)
+    inp = planted_inputs(16384, 1024, rng, dev, batch=B)
+    args = [inp[k] for k in ("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid",
+                             "b_desc", "b_pm1", "b_uv", "b_lvl", "b_valid")]
+    ref_args = [inp[k] for k in ("a_pm1", "a_uv", "a_lvl", "a_valid",
+                                 "b_pm1", "b_uv", "b_lvl", "b_valid")]
+    flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    k_ms, k_cold, k_plain, k_bound = {}, {}, {}, {}
+    max_err = err_real
+    for radius in RADII:
+        err, n_has = compare_kernel(inp, radius)
+        max_err = max(max_err, err)
+        k_ms[radius] = time_cuda(lambda: hamming_top2_windowed(*args, radius))
+        k_cold[radius] = time_cuda_cold(lambda: hamming_top2_windowed(*args, radius), flush)
+        k_plain[radius] = time_cuda(lambda: hamming_top2_windowed_ref(*ref_args, radius),
+                                    n=3, warmup=1, rounds=3)
+        k_bound[radius] = kernel_bound(inp, radius)
+        _phase("multiseq", f"B={B} M=16384 N=1024 r={radius:g}: exact ({n_has} rows matched); "
+                           f"one launch {k_ms[radius] * 1e3:.1f} us (cold L2 "
+                           f"{k_cold[radius] * 1e3:.1f} us) against {B} x single "
+                           f"{B * single_ms[radius] * 1e3:.1f} us; twin "
+                           f"{k_plain[radius] * 1e3:.1f} us; bound "
+                           f"{k_bound[radius][0] * 1e3:.2f} us by {k_bound[radius][1]} ({B} x "
+                           f"single {B * single_bound[radius][0] * 1e3:.2f} us)")
+    del flush, inp, args, ref_args
+    # 10 of the windows over a two-shard "seq" mesh on one card
+    sub = slice(0, MULTISEQ_MESH_B)
+    ms_sub = multiseq.batch_rows(ms, sub)
+    mesh = multiseq.make_seq_mesh(devices=[dev, dev])
+    mstep = multiseq.make_batched_step(cam, ext, n_features=p.n_feat, n_levels=p.n_levels,
+                                       iters=MULTISEQ_ITERS, mesh=mesh)
+    out_mesh = mstep(ms_sub, imgs1[sub], P0[sub], R0[sub])
+    out_one = step(ms_sub, imgs1[sub], P0[sub], R0[sub])
+    dP_mesh = float((out_mesh[0] - out_one[0]).abs().max())
+    dn_mesh = int((out_mesh[3] - out_one[3]).abs().max())
+    exact = all(torch.equal(a, b) for a, b in zip(out_mesh, out_one))
+    _phase("multiseq", f"{MULTISEQ_MESH_B} windows over a {mesh.size}-shard seq mesh on {dev} "
+                       f"against the unsharded step: positions within {dP_mesh * 1e3:.4f} mm, "
+                       f"inliers within {dn_mesh}, bit-equal {exact} ({time.time() - t0:.1f} s)")
+    if dP_mesh >= MULTISEQ_POS_TOL or dn_mesh > MULTISEQ_INLIER_TOL:
+        raise AssertionError(f"seq mesh against unsharded: {dP_mesh} m, {dn_mesh} inliers")
+    detail = dict(windows=list(starts), steps=MULTISEQ_STEPS, rmse_m=rmse.tolist(),
+                  dP_vs_unbatched_m=dP, dn_vs_unbatched=dn, launches=launches_batched,
+                  launches_unbatched=launches_single, step_ms=bat["ms"],
+                  step_ms_median=float(np.median(step_ms)),
+                  step_ms_p90=float(np.percentile(step_ms, 90)),
+                  unbatched_frame_ms_median=float(np.median(single_frame_ms)),
+                  fps_batched=fps_batched, fps_sequential=fps_seq, peak_device_MiB=peak_mb,
+                  kernels_per_batched_step=k_batched, kernels_per_unbatched_frame=k_single,
+                  real_searches=n_real,
+                  kernel_ms_by_radius={f"{r:g}": k_ms[r] for r in RADII},
+                  kernel_cold_ms_by_radius={f"{r:g}": k_cold[r] for r in RADII},
+                  plain_ms_by_radius={f"{r:g}": k_plain[r] for r in RADII},
+                  bound_ms_by_radius={f"{r:g}": k_bound[r][0] for r in RADII},
+                  mesh=dict(windows=MULTISEQ_MESH_B, shards=mesh.size, dP_m=dP_mesh,
+                            dn=dn_mesh, bit_equal=exact),
+                  seconds=time.time() - t0)
+    record = dict(launches=launches_batched, ms=k_ms[15.0], plain_ms=k_plain[15.0],
+                  bound_ms=k_bound[15.0][0], bound_by=k_bound[15.0][1])
+    return detail, record, max_err
+
+
+# ---------------------------------------------------------------------------
+# phase "multihost": the process-group Schur solve (tools/run_multihost_ba.py,
+# BASELINE.json config #5)
+
+MULTIHOST_RUNS = (("gloo", 2), ("nccl", 1))   # (backend, ranks) on this card
+MULTIHOST_TIMEOUT = 240     # s, each --demo run (its ranks are waited on with it)
+
+
+def run_multihost_phase():
+    """Spawn tools/run_multihost_ba.py --demo for each of MULTIHOST_RUNS on
+    both problems; every rank's JSON line must say ok. Returns the reports."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [x for x in os.environ.get("PYTHONPATH", "").split(os.pathsep) if x]))
+    out = {}
+    for backend, n in MULTIHOST_RUNS:
+        t0 = time.time()
+        cmd = [sys.executable, "-m", "mc_slam_tpu_torch.tools.run_multihost_ba",
+               "--demo", str(n), "--device", "cuda", "--backend", backend,
+               "--shards-per-proc", "4", "--problem", "demo,map",
+               "--timeout", str(MULTIHOST_TIMEOUT)]
+        proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True, text=True,
+                              timeout=MULTIHOST_TIMEOUT + 30)
+        reports = [json.loads(l) for l in proc.stdout.splitlines() if l.startswith("{")]
+        for l in proc.stdout.splitlines():
+            if not l.startswith("{"):
+                _phase("multihost", l)
+        if proc.returncode != 0 or len(reports) != n or not all(r["ok"] for r in reports):
+            raise AssertionError(f"run_multihost_ba --demo {n} --backend {backend}: rc "
+                                 f"{proc.returncode}\n{proc.stdout[-4000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        r0 = next(r for r in reports if r["rank"] == 0)
+        for kind, e in r0["problems"].items():
+            _phase("multihost", f"{backend}, {n} rank(s) x 4 shards, {kind}: every rank "
+                                f"bit-equal to rank 0, max err vs single-process "
+                                f"{e['max_err_vs_single']:.3e} (< 5e-4), ms/solve median "
+                                f"{e['ms_median']:.3f} (rank 0)")
+        out[f"{backend}x{n}"] = dict(reports=reports, seconds=time.time() - t0)
+    _phase("multihost", "two ranks on two cards (NCCL across cards) not measured: one card")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2371,14 +2674,32 @@ def main():
     detail7, launches_stereo, err = depth_phase("path7", seq_boot, p, cam, dev, right=right)
     max_err = max(max_err, err)
 
+    # ---- phase "multiseq": 11 windows as one batched step ----
+    detail_ms, rec_ms, err_ms = run_multiseq_phase(seq_boot, p, cam, ext, dev, kernel_ms,
+                                                   bounds)
+
+    # ---- phase "multihost": the process-group Schur solve ----
+    detail_mh = run_multihost_phase()
+
     bound_ms, bound_by, bound_detail = bounds[15.0]
+    launches_paths = (launches_loc + launches_map + launches_boot + launches_sys
+                      + launches_rev + launches_ckpt + launches_rgbd + launches_stereo)
+    _phase("launches", f"paths 1-7 and the phase \"checkpoint\": {launches_loc} + "
+                       f"{launches_map} + {launches_boot} + {launches_sys} + {launches_rev} + "
+                       f"{launches_ckpt} + {launches_rgbd} + {launches_stereo} = "
+                       f"{launches_paths}; phase \"multiseq\": {rec_ms['launches']}")
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES,
-        "launches": (launches_loc + launches_map + launches_boot + launches_sys
-                     + launches_rev + launches_ckpt + launches_rgbd + launches_stereo),
+        "replaces": KERNEL_REPLACES, "shape": "M=16384 x N=1024 (paths 1-7)",
+        "launches": launches_paths,
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}]}
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
+        "name": "hamming_top2_windowed (batched)", "route": "cuda", "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES,
+        "shape": f"B={len(MULTISEQ_STARTS)} x M=16384 x N=1024 (phase multiseq)",
+        "launches": rec_ms["launches"], "max_abs_err": err_ms, "ms": rec_ms["ms"],
+        "plain_ms": rec_ms["plain_ms"], "bound_ms": rec_ms["bound_ms"],
+        "bound_by": rec_ms["bound_by"], "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
     detail = {"card": smi, "kernel_ms_by_radius": {f"{r:g}": kernel_ms[r] for r in RADII},
               "kernel_cold_ms_by_radius": {f"{r:g}": cold_ms[r] for r in RADII},
@@ -2400,6 +2721,7 @@ def main():
                         "peak_device_MiB": peak_mb},
               "path3": detail3, "path4": detail4, "path5": detail5, "path6": detail6,
               "path7": detail7, "mesh": {"gba": mg, "posegraph": mp}, "checkpoint": ck,
+              "multiseq": detail_ms, "multihost": detail_mh,
               "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
           flush=True)

@@ -52,6 +52,13 @@
 // (the bits of Features.desc / MapState.mp_desc, held as int32): the exact
 // integer Hamming distance. Any M and N: ragged edges are NaN-padded, and
 // N above kMaxTile is walked tile by tile.
+//
+// Batches: B independent problems of the same (M, N) in ONE launch (the
+// port of the batch axis that jax.vmap gives the Pallas grid; the B
+// sequences of parallel/multiseq.py). blockIdx.y is the problem: its
+// queries, candidates and outputs start at row b * M (queries, outputs) and
+// b * N (candidates), and each block stages its own problem's candidates in
+// shared memory. One problem is B = 1, with the grid it always had.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -120,6 +127,20 @@ hamming_top2_windowed_kernel(const int32_t* __restrict__ a_desc,   // (M, 8)
                              int32_t* __restrict__ second_out,
                              int32_t* __restrict__ idx_out) {
   extern __shared__ float4 s_gate[];   // (u, v, level bits, -); u = NaN: never passes
+
+  // this block's problem: its rows of every table
+  const size_t prob = blockIdx.y;
+  a_desc += prob * M * 8;
+  a_uv += prob * M * 2;
+  a_lvl += prob * M;
+  a_valid += prob * M;
+  b_desc += prob * N * 8;
+  b_uv += prob * N * 2;
+  b_lvl += prob * N;
+  b_valid += prob * N;
+  best_out += prob * M;
+  second_out += prob * M;
+  idx_out += prob * M;
 
   const int g = threadIdx.x % kGroup;
   const int row = blockIdx.x * kRowsPerBlock + threadIdx.x / kGroup;
@@ -204,17 +225,20 @@ hamming_top2_windowed_kernel(const int32_t* __restrict__ a_desc,   // (M, 8)
 
 }  // namespace
 
-// Plain C entry point (loaded with ctypes). Every pointer and the stream are
-// passed as void*; returns cudaGetLastError() of the launch (0 = success).
-// The descriptor and uv tables must be 16- and 8-byte aligned: rows of a
-// contiguous torch tensor are.
-extern "C" int hamming_top2_windowed_launch(
+// Plain C entry points (loaded with ctypes). Every pointer and the stream are
+// passed as void*; each returns cudaGetLastError() of its launch (0 =
+// success). The descriptor and uv tables must be 16- and 8-byte aligned:
+// rows of a contiguous torch tensor are. The batched entry takes B problems
+// stacked row-wise ((B, M, .) queries, (B, N, .) candidates, (B, M) outputs)
+// and launches once; the single-problem entry is its B = 1 case.
+extern "C" int hamming_top2_windowed_launch_batched(
     const void* a_desc, const void* a_uv, const void* a_lvl, const void* a_valid,
     const void* b_desc, const void* b_uv, const void* b_lvl, const void* b_valid,
-    float radius, int level_tol, int M, int N,
+    float radius, int level_tol, int B, int M, int N,
     void* best, void* second, void* idx, void* stream) {
-  if (M <= 0) return 0;
-  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (M <= 0 || B <= 0) return 0;
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock, B);
   const int n_tile = N < kMaxTile ? N : kMaxTile;
   const size_t smem =
       static_cast<size_t>((n_tile + kStep - 1) / kStep * kStep) * sizeof(float4);
@@ -227,4 +251,14 @@ extern "C" int hamming_top2_windowed_launch(
       radius, level_tol, M, N, static_cast<int32_t*>(best),
       static_cast<int32_t*>(second), static_cast<int32_t*>(idx));
   return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hamming_top2_windowed_launch(
+    const void* a_desc, const void* a_uv, const void* a_lvl, const void* a_valid,
+    const void* b_desc, const void* b_uv, const void* b_lvl, const void* b_valid,
+    float radius, int level_tol, int M, int N,
+    void* best, void* second, void* idx, void* stream) {
+  return hamming_top2_windowed_launch_batched(
+      a_desc, a_uv, a_lvl, a_valid, b_desc, b_uv, b_lvl, b_valid, radius,
+      level_tol, 1, M, N, best, second, idx, stream);
 }

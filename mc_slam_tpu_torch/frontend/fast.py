@@ -5,11 +5,14 @@ Per-pixel 16-point Bresenham ring test with the dual-threshold scheme
 and a global top-k. Ties follow the JAX package: the per-cell argmax takes
 the first maximum and the top-k keeps equal scores in ascending index order
 (a stable descending sort, not `torch.topk`, which promises no tie order).
+Every function takes (H, W) images or a batch (B, H, W) of them.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from mc_slam_tpu_torch.frontend.pyramid import pad2d
 
 # Bresenham circle of radius 3, (dx, dy), starting at top and going clockwise
 RING_OFFSETS = (
@@ -20,9 +23,9 @@ RING_OFFSETS = (
 
 def _ring_views(img):
     """The 16 ring-neighbour intensity maps via an edge-padded image."""
-    H, W = img.shape
-    p = F.pad(img[None, None], (3, 3, 3, 3), mode="replicate")[0, 0]
-    return [p[3 + dy:3 + dy + H, 3 + dx:3 + dx + W] for (dx, dy) in RING_OFFSETS]
+    H, W = img.shape[-2:]
+    p = pad2d(img, (3, 3, 3, 3), "replicate")
+    return [p[..., 3 + dy:3 + dy + H, 3 + dx:3 + dx + W] for (dx, dy) in RING_OFFSETS]
 
 
 def _contiguous_arc(flags):
@@ -54,7 +57,7 @@ def fast_response_dual(img, th_hi, th_lo):
         pos = pos + torch.clamp(di - th_lo, min=0.0)
         neg = neg + torch.clamp(-di - th_lo, min=0.0)
     score = torch.maximum(pos, neg)
-    inb = _inside(img.shape, 3, img.device)
+    inb = _inside(img.shape[-2:], 3, img.device)
     return corner_hi & inb, corner_lo & inb, torch.where(inb, score, 0.0)
 
 
@@ -67,16 +70,19 @@ def _inside(shape, border, device):
 
 def nms3(score):
     """3x3 non-max suppression: keep pixels that equal their neighbourhood max."""
-    m = F.max_pool2d(score[None, None], 3, stride=1, padding=1)[0, 0]
+    x = score.reshape((-1, 1) + score.shape[-2:])
+    m = F.max_pool2d(x, 3, stride=1, padding=1).reshape(score.shape)
     return (score >= m) & (score > 0)
 
 
 def detect_grid(img, th_hi=20.0, th_lo=7.0, cell=32, max_kp=512, border=16):
     """Grid-distributed FAST detection with dual thresholds.
 
-    Returns (xy (max_kp, 2) float32, score (max_kp,) f32, valid (max_kp,) bool);
-    coordinates are (x, y) at this image's resolution."""
-    H, W = img.shape
+    Returns (xy (max_kp, 2) float32, score (max_kp,) f32, valid (max_kp,) bool),
+    each with img's leading batch dims; coordinates are (x, y) at this
+    image's resolution."""
+    H, W = img.shape[-2:]
+    lead = img.shape[:-2]
     dev = img.device
     c_hi, c_lo, score = fast_response_dual(img, th_hi, th_lo)
     s_hi = torch.where(c_hi, score, 0.0)
@@ -91,31 +97,33 @@ def detect_grid(img, th_hi=20.0, th_lo=7.0, cell=32, max_kp=512, border=16):
 
     def cellify(a):
         a = F.pad(a, (0, pw - W, 0, ph - H))
-        return a.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(
-            gh * gw, cell * cell)
+        return a.reshape(lead + (gh, cell, gw, cell)).transpose(-3, -2).reshape(
+            lead + (gh * gw, cell * cell))
 
     ch, cl = cellify(s_hi), cellify(s_lo)
-    hi_has = torch.amax(ch, dim=1) > 0
-    use = torch.where(hi_has[:, None], ch, cl)
-    best, idx = torch.max(use, dim=1)      # first maximum per cell
+    hi_has = torch.amax(ch, dim=-1) > 0
+    use = torch.where(hi_has[..., None], ch, cl)
+    best, idx = torch.max(use, dim=-1)     # first maximum per cell
     cells = torch.arange(gh * gw, device=dev)
     cy = idx // cell + (cells // gw) * cell
     cx = idx % cell + (cells % gw) * cell
 
     k = min(max_kp, gh * gw)
     top, ti = torch.sort(best, descending=True, stable=True)
-    top, ti = top[:k], ti[:k]
-    xi = cx[ti]
-    yi = cy[ti]
+    top, ti = top[..., :k], ti[..., :k]
+    xi = torch.gather(cx, -1, ti)
+    yi = torch.gather(cy, -1, ti)
     # subpixel refinement: 1-D parabola fits on the RAW dense response
-    sp = F.pad(score, (1, 1, 1, 1))
+    sp = F.pad(score, (1, 1, 1, 1)).flatten(-2)
+    wp = W + 2
+    at = lambda y, x: torch.gather(sp, -1, y * wp + x)
     yc = yi + 1
     xc = xi + 1
-    s0 = sp[yc, xc]
-    sxm = sp[yc, xc - 1]
-    sxp = sp[yc, xc + 1]
-    sym = sp[yc - 1, xc]
-    syp = sp[yc + 1, xc]
+    s0 = at(yc, xc)
+    sxm = at(yc, xc - 1)
+    sxp = at(yc, xc + 1)
+    sym = at(yc - 1, xc)
+    syp = at(yc + 1, xc)
     den_x = sxm - 2.0 * s0 + sxp
     den_y = sym - 2.0 * s0 + syp
     dx = torch.where(torch.abs(den_x) > 1e-6, 0.5 * (sxm - sxp) / den_x, 0.0)

@@ -75,27 +75,30 @@ def match_nn(dist, mask, max_dist=TH_LOW, ratio=None, ratio_mask=None):
 
 
 def resolve_duplicates(idx_b, best, ok, Nb):
-    """Keep only the best match per target b; exact ties keep the lowest row."""
+    """Keep only the best match per target b; exact ties keep the lowest row.
+    The rows may carry leading batch dims (one set of Nb targets a problem)."""
     idx_b = idx_b.to(torch.int64)
     d = torch.where(ok, best, BIG).to(torch.int32)
-    best_for_b = torch.full((Nb,), BIG, dtype=torch.int32, device=d.device)
-    best_for_b = best_for_b.scatter_reduce(0, idx_b, d, reduce="amin")
-    is_min = ok & (d == best_for_b[idx_b])
-    rows = torch.arange(idx_b.shape[0], dtype=torch.int32, device=d.device)
-    far = torch.full((Nb,), 2 ** 30, dtype=torch.int32, device=d.device)
+    lead = idx_b.shape[:-1]
+    best_for_b = torch.full(lead + (Nb,), BIG, dtype=torch.int32, device=d.device)
+    best_for_b = best_for_b.scatter_reduce(-1, idx_b, d, reduce="amin")
+    is_min = ok & (d == torch.gather(best_for_b, -1, idx_b))
+    rows = torch.arange(idx_b.shape[-1], dtype=torch.int32, device=d.device)
+    far = torch.full(lead + (Nb,), 2 ** 30, dtype=torch.int32, device=d.device)
     first_row = far.scatter_reduce(
-        0, idx_b, torch.where(is_min, rows, 2 ** 30).to(torch.int32), reduce="amin")
-    return is_min & (first_row[idx_b] == rows)
+        -1, idx_b, torch.where(is_min, rows, 2 ** 30).to(torch.int32), reduce="amin")
+    return is_min & (torch.gather(first_row, -1, idx_b) == rows)
 
 
 def window_mask(uv_a, uv_b, radius, level_a=None, level_b=None, level_tol=1):
-    """(Na, Nb) gate: |uv_a - uv_b| inside a square window of `radius` pixels,
-    optionally with |level_a - level_b| <= level_tol."""
-    du = torch.abs(uv_a[:, None, 0] - uv_b[None, :, 0])
-    dv = torch.abs(uv_a[:, None, 1] - uv_b[None, :, 1])
+    """(..., Na, Nb) gate: |uv_a - uv_b| inside a square window of `radius`
+    pixels, optionally with |level_a - level_b| <= level_tol; both sides may
+    carry the same leading batch dims."""
+    du = torch.abs(uv_a[..., :, None, 0] - uv_b[..., None, :, 0])
+    dv = torch.abs(uv_a[..., :, None, 1] - uv_b[..., None, :, 1])
     m = (du < radius) & (dv < radius)
     if level_a is not None:
-        dl = torch.abs(level_a[:, None] - level_b[None, :])
+        dl = torch.abs(level_a[..., :, None] - level_b[..., None, :])
         m = m & (dl <= level_tol)
     return m
 
@@ -113,6 +116,9 @@ def search_by_projection(proj_uv, proj_valid, proj_level, proj_desc, proj_pm1,
     the CUDA kernel reads) and +/-1 int8 rows (what the CPU twin reads); the
     map and extractor always write both together.
 
+    Every input may carry one leading batch dim B (B independent searches,
+    ONE kernel launch); the outputs then are (B, Nm).
+
     Returns (feat_idx (Nm,) int64, dist (Nm,) int32, ok (Nm,) bool)."""
     best, second, idx = match_cuda.hamming_top2_windowed(
         proj_desc, proj_pm1, proj_uv, proj_level.to(torch.int32), proj_valid,
@@ -121,7 +127,7 @@ def search_by_projection(proj_uv, proj_valid, proj_level, proj_desc, proj_pm1,
     ok = best <= max_dist
     if ratio is not None:
         ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
-    ok = resolve_duplicates(idx, best, ok, feat_uv.shape[0])
+    ok = resolve_duplicates(idx, best, ok, feat_uv.shape[-2])
     if proj_angle is not None and feat_angle is not None:
         ok = rotation_consistency_mask(proj_angle, feat_angle, idx, ok,
                                        participate=proj_angle_valid)

@@ -9,6 +9,8 @@ two sample pixels of the keypoint's own bin directly (same values).
 
 Packed descriptors are (N, 8) int32 holding the bits of the JAX package's
 (N, 8) uint32 words: torch.uint32 has few operators, on CUDA least of all.
+Every function takes keypoint tables with or without a leading batch dim B
+(images (B, H, W), keypoints (B, K, 2)).
 """
 from __future__ import annotations
 
@@ -72,23 +74,30 @@ def _device_tables(device: torch.device):
 
 
 def extract_patches(img, xy, r=PATCH_R):
-    """(K, 2r+1, 2r+1) patches around rounded keypoints; border keypoints
-    clamp the window inside the image."""
-    H, W = img.shape
+    """(..., K, 2r+1, 2r+1) patches around rounded keypoints; border
+    keypoints clamp the window inside the image. img (H, W) with xy (K, 2),
+    or (B, H, W) with (B, K, 2)."""
+    H, W = img.shape[-2:]
     xi = torch.round(xy).to(torch.int64) if xy.is_floating_point() else xy.to(torch.int64)
-    y0 = torch.clamp(xi[:, 1] - r, 0, H - (2 * r + 1))
-    x0 = torch.clamp(xi[:, 0] - r, 0, W - (2 * r + 1))
+    y0 = torch.clamp(xi[..., 1] - r, 0, H - (2 * r + 1))
+    x0 = torch.clamp(xi[..., 0] - r, 0, W - (2 * r + 1))
     off = torch.arange(2 * r + 1, device=img.device)
-    rows = (y0[:, None] + off[None, :])[:, :, None]
-    cols = (x0[:, None] + off[None, :])[:, None, :]
-    return img[rows, cols]
+    rows = (y0[..., None] + off)[..., :, None]
+    cols = (x0[..., None] + off)[..., None, :]
+    if img.dim() == 2:
+        return img[rows, cols]
+    b = torch.arange(img.shape[0], device=img.device)[:, None, None, None]
+    return img[b, rows, cols]
 
 
 def ic_angle_from_patches(patches):
-    """(K, 31, 31) -> (K,) IC angle: one (K, 961) @ (961, 2) product."""
+    """(..., K, 31, 31) -> (..., K) IC angle: one (K, 961) @ (961, 2)
+    product; a batch stacks its rows into the same product (which may round
+    a row's moments differently from its image's own product: the angles of
+    a batched extraction agree with per-image ones to float32 rounding)."""
     mw = _device_tables(patches.device)[2]
-    m = patches.reshape(patches.shape[0], -1) @ mw
-    return torch.atan2(m[:, 1], m[:, 0])
+    m = (patches.reshape(-1, PATCH_W * PATCH_W) @ mw).reshape(patches.shape[:-2] + (2,))
+    return torch.atan2(m[..., 1], m[..., 0])
 
 
 def brief_from_patches(patches_blur, angle):
@@ -98,19 +107,18 @@ def brief_from_patches(patches_blur, angle):
     Each bit is sign(I2 - I1). The JAX package evaluates it with a bf16
     product split into hi = round(I) (exact) and lo = I - hi rounded to bf16;
     the same split is taken here, so the bits agree."""
-    K = patches_blur.shape[0]
     i1, i2, _ = _device_tables(patches_blur.device)
-    flat = patches_blur.reshape(K, -1)
+    flat = patches_blur.flatten(-2)
     hi = torch.round(flat)
     lo = (flat - hi).to(torch.bfloat16).to(torch.float32)
     two_pi = 2.0 * np.pi
     b = torch.remainder(
         torch.round(torch.remainder(angle, two_pi) * (NBINS / two_pi)).to(torch.int64),
         NBINS)
-    s1 = i1[b]                                   # (K, 256)
+    s1 = i1[b]                                   # (..., K, 256)
     s2 = i2[b]
-    d_hi = torch.gather(hi, 1, s2) - torch.gather(hi, 1, s1)
-    d_lo = torch.gather(lo, 1, s2) - torch.gather(lo, 1, s1)
+    d_hi = torch.gather(hi, -1, s2) - torch.gather(hi, -1, s1)
+    d_lo = torch.gather(lo, -1, s2) - torch.gather(lo, -1, s1)
     return ((d_hi + d_lo) > 0).to(torch.int32)
 
 
@@ -120,9 +128,11 @@ def _wrap_int32(v):
 
 
 def pack_bits(bits):
-    """(K, 256) {0,1} -> (K, 8) int32 packed words (bit j of word w = bit 32w+j)."""
+    """(..., K, 256) {0,1} -> (..., K, 8) int32 packed words (bit j of word w
+    = bit 32w+j)."""
     shifts = torch.arange(32, device=bits.device, dtype=torch.int64)
-    v = torch.sum(bits.reshape(-1, 8, 32).to(torch.int64) << shifts, dim=-1)
+    v = torch.sum(bits.reshape(bits.shape[:-1] + (8, 32)).to(torch.int64) << shifts,
+                  dim=-1)
     return _wrap_int32(v)
 
 
@@ -132,8 +142,8 @@ def bits_to_pm1(bits):
 
 
 def unpack_pm1(desc_packed):
-    """(N, 8) int32 packed words -> (N, 256) int8 in {-1, +1}."""
+    """(..., N, 8) int32 packed words -> (..., N, 256) int8 in {-1, +1}."""
     shifts = torch.arange(32, device=desc_packed.device, dtype=torch.int64)
     words = desc_packed.to(torch.int64) & 0xFFFFFFFF
-    bits = (words[:, :, None] >> shifts) & 1
-    return bits.reshape(desc_packed.shape[0], 256).to(torch.int8) * 2 - 1
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(desc_packed.shape[:-1] + (256,)).to(torch.int8) * 2 - 1

@@ -5,6 +5,8 @@ separable resampling with a triangle kernel widened by 1/scale
 (`jax.image.scale_and_translate`). `F.interpolate` is a different filter, so
 this port builds the same per-axis weight matrices in numpy float32 and
 applies them as two matrix products.
+
+Every function takes (H, W) images or a batch (B, H, W) of them.
 """
 from __future__ import annotations
 
@@ -55,20 +57,31 @@ def _resize_matrix(n_in: int, n_out: int, device: torch.device):
 
 
 def resize_bilinear(img, shape):
-    """Antialiased bilinear resize of (H, W) to `shape` (jax.image.resize parity)."""
+    """Antialiased bilinear resize of (..., H, W) to (..., *shape)
+    (jax.image.resize parity). A batch goes through the same two 2-D
+    products as one image, its images side by side (rows: (H, B*W); columns:
+    (B*h, W)), so every image gets the same sums as when resized alone."""
     h, w = shape
+    H, W = img.shape[-2:]
     out = img
-    if img.shape[0] != h:
-        out = _resize_matrix(img.shape[0], h, img.device).T @ out
-    if img.shape[1] != w:
-        out = out @ _resize_matrix(img.shape[1], w, img.device)
+    if H != h:
+        R = _resize_matrix(H, h, img.device).T
+        if img.dim() == 2:
+            out = R @ out
+        else:
+            lead = out.shape[:-2]
+            side = out.reshape(-1, H, W).permute(1, 0, 2).reshape(H, -1)
+            out = (R @ side).reshape(h, -1, W).permute(1, 0, 2).reshape(lead + (h, W))
+    if W != w:
+        out = out @ _resize_matrix(W, w, img.device)
     return out
 
 
 def build_pyramid(img, n_levels=DEFAULT_LEVELS, scale=DEFAULT_SCALE):
-    """img: (H, W) float32 in [0, 255]. Returns a list of (Hi, Wi) tensors,
-    each resized from the previous level as the reference does."""
-    h, w = img.shape
+    """img: (H, W) or (B, H, W) float32 in [0, 255]. Returns a list of
+    (Hi, Wi) tensors (with the batch dim), each resized from the previous
+    level as the reference does."""
+    h, w = img.shape[-2:]
     shapes = level_shapes(h, w, n_levels, scale)
     levels = [img]
     for i in range(1, n_levels):
@@ -82,22 +95,29 @@ def _gauss_kernel1d(sigma=2.0, radius=3):
     return (k / np.sum(k, dtype=np.float32)).astype(np.float32)
 
 
+def pad2d(img, pad, mode):
+    """F.pad of the last two dims of a (H, W) or (B, H, W) image in a mode
+    that wants (N, C, H, W) (reflect, replicate)."""
+    x = img.reshape((-1, 1) + img.shape[-2:])
+    out = F.pad(x, pad, mode=mode)
+    return out.reshape(img.shape[:-2] + out.shape[-2:])
+
+
 def _reflect_pad(img, top_bottom, left_right):
-    return F.pad(img[None, None], (left_right, left_right, top_bottom, top_bottom),
-                 mode="reflect")[0, 0]
+    return pad2d(img, (left_right, left_right, top_bottom, top_bottom), "reflect")
 
 
 def gaussian_blur(img, sigma=2.0, radius=3):
-    """Separable 7x7 Gaussian with reflect padding; img (H, W) float32.
+    """Separable 7x7 Gaussian with reflect padding; img (..., H, W) float32.
     Taps are summed in the JAX package's order (one shifted add per tap)."""
     k = [float(v) for v in _gauss_kernel1d(sigma, radius)]
-    H, W = img.shape
+    H, W = img.shape[-2:]
     x = _reflect_pad(img, radius, 0)
     out = torch.zeros_like(img)
     for i in range(2 * radius + 1):
-        out = out + k[i] * x[i:i + H, :]
+        out = out + k[i] * x[..., i:i + H, :]
     x = _reflect_pad(out, 0, radius)
     out = torch.zeros_like(img)
     for i in range(2 * radius + 1):
-        out = out + k[i] * x[:, i:i + W]
+        out = out + k[i] * x[..., :, i:i + W]
     return out

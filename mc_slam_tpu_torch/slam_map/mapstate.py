@@ -48,17 +48,19 @@ class MapState(NamedTuple):
     mp_first_kf: torch.Tensor  # (P,) int32 id of the creating frame
     mp_active: torch.Tensor  # (P,) bool
 
+    # capacities; a stacked map (parallel/multiseq.stack_maps: every field
+    # with a leading sequence dim B) has the same ones
     @property
     def K(self):
-        return self.kf_active.shape[0]
+        return self.kf_active.shape[-1]
 
     @property
     def P(self):
-        return self.mp_active.shape[0]
+        return self.mp_active.shape[-1]
 
     @property
     def F(self):
-        return self.kf_feat_valid.shape[1]
+        return self.kf_feat_valid.shape[-1]
 
 
 def empty_map(max_kf: int, max_mp: int, n_feat: int, dtype=torch.float32,
@@ -121,6 +123,19 @@ def _set_drop(t, idx, val):
     buf = torch.cat([t, t.new_zeros((1,) + t.shape[1:])])
     buf[idx] = val
     return buf[:-1]
+
+
+def _set_drop_batched(t, idx, val):
+    """`_set_drop` along the LAST dim of t (..., n) with idx (..., k) and val
+    broadcasting to idx: the leading dims are batch dims (one problem each),
+    and entries of idx equal to n are not written. A 1-D t is `_set_drop`.
+    As there, which of two writes to one index lands is not fixed."""
+    if t.dim() == 1:
+        return _set_drop(t, idx, val)
+    if not isinstance(val, torch.Tensor):
+        val = torch.full((), val, dtype=t.dtype, device=t.device)
+    buf = torch.cat([t, t.new_zeros(t.shape[:-1] + (1,))], dim=-1)
+    return buf.scatter(-1, idx, val.to(t.dtype).expand(idx.shape))[..., :-1]
 
 
 def _slot_tensor(k, device):

@@ -66,26 +66,35 @@ def _obs_weights(r, z, inv_sigma2, valid, delta2):
 
 
 def _robust_cost(r, z, inv_sigma2, valid, delta2):
-    """Truncated-Huber cost; out-of-frustum observations sit on the plateau."""
+    """Truncated-Huber cost; out-of-frustum observations sit on the plateau.
+    One cost per problem of the observations' leading batch dims."""
     chi2 = torch.sum(r * r, dim=-1) * inv_sigma2
     rho = lm.trunc_huber_cost(chi2, delta2)
     rho = torch.where(z > 1e-6, rho, lm.trunc_plateau(delta2))
-    return torch.sum(valid * rho)
+    return torch.sum(valid * rho, dim=-1)
 
 
 def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
                      ext: factors.Extrinsics, iters: int = 40, bf=0.0, rtol: float = 0.0):
     """Optimize a single body pose against fixed world points; with obs.ur
     set, stereo / RGB-D rows add the u_right row (bf = fx * baseline).
-    Returns (P, R, chi2 (O,), n_inlier)."""
-    pts_o = pts_w[obs.pt]
+    With a leading batch dim B (P0 (B, 3), R0 (B, 3, 3), pts_w (B, Np, 3),
+    every obs field (B, O)) the B problems are solved together, each with
+    its own cost, accept and damping (lm.lm_optimize's batch).
+    Returns (P, R, chi2 (O,), n_inlier), each with the batch dim."""
+    if P0.dim() > 1:
+        pts_o = torch.gather(pts_w, -2, obs.pt[..., None].expand(obs.pt.shape + (3,)))
+        pose = lambda P, R: (P[..., None, :], R[..., None, :, :])   # against every row
+    else:
+        pts_o = pts_w[obs.pt]
+        pose = lambda P, R: (P, R)
 
     def per_obs(P, R):
-        return obs_reproj(camera, ext, P, R, pts_o, obs, bf)
+        return obs_reproj(camera, ext, *pose(P, R), pts_o, obs, bf)
 
     def retract(x, dx):
         P, R = x
-        return (P + dx[:3], R @ lie.so3_exp(dx[3:6]))
+        return (P + dx[..., :3], R @ lie.so3_exp(dx[..., 3:6]))
 
     def make_fns(valid):
         def cost_fn(x):
@@ -95,9 +104,10 @@ def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
         def linearize_solve(x, lam):
             r, J_pr, _, z, d2 = per_obs(*x)
             w, _ = _obs_weights(r, z, obs.inv_sigma2, valid, d2)
-            H = torch.einsum('o,orc,ord->cd', w, J_pr, J_pr)
-            g = torch.einsum('o,orc,or->c', w, J_pr, r)
-            H = H + torch.diag(lam * torch.diagonal(H) + 1e-10)
+            H = torch.einsum('...o,...orc,...ord->...cd', w, J_pr, J_pr)
+            g = torch.einsum('...o,...orc,...or->...c', w, J_pr, r)
+            H = H + torch.diag_embed(lam[..., None] * torch.diagonal(H, dim1=-2, dim2=-1)
+                                     + 1e-10)
             return lm.cho_solve_nan(H, -g)
 
         return linearize_solve, retract, cost_fn
@@ -112,7 +122,7 @@ def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
     r, _, _, z, d2 = per_obs(P, R)
     chi2 = torch.sum(r * r, dim=-1) * obs.inv_sigma2
     inlier = (chi2 <= d2) & (z > 0) & (obs.valid > 0)
-    return P, lie.so3_normalize_fast(R), chi2, torch.sum(inlier)
+    return P, lie.so3_normalize_fast(R), chi2, torch.sum(inlier, dim=-1)
 
 
 def visual_ba(P0, R0, pts0, obs: VisualObs, camera: Camera, ext: factors.Extrinsics,

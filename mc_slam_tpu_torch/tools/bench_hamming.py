@@ -1,7 +1,7 @@
 """Time variants of the hamming_top2_windowed kernel on one GPU, in turns.
 
     python3 -m mc_slam_tpu_torch.tools.bench_hamming [--baseline OLD.cu]
-        [--variants 8x256x4,32x256x4,...] [--out bench_hamming.json]
+        [--variants 8x256x4,32x256x4,...] [--batch B] [--out bench_hamming.json]
 
 Builds csrc/hamming_top2_windowed.cu once per variant GROUPxTHREADSxUNROLL
 (the source's HT2W_GROUP / HT2W_THREADS / HT2W_UNROLL macros; one nvcc per
@@ -18,6 +18,10 @@ PyTorch twin at M=16384 x N=1024 and the ragged 16001 x 1000, radii 4, 15 and
   launches evicts the 50 MB L2; CUDA events around each single launch, median.
 * wrapper: the shipped build through match_cuda.hamming_top2_windowed, warm,
   Python wrapper included.
+* --batch B: B problems of 16384 x 1024 (planted_inputs(batch=B)) in ONE
+  launch of the shipped build through the wrapper, held exactly against the
+  batched twin, then timed warm and cold as above, beside B x the single
+  problem's wrapper time and the batched bound (chip_smoke.kernel_bound).
 
 Needs a GPU; there is no CPU mode.
 """
@@ -98,6 +102,8 @@ def main():
     ap.add_argument("--baseline", type=Path, default=None)
     ap.add_argument("--variants", default="8x256x4")
     ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--batch", type=int, default=0,
+                    help="also time B problems in one launch (0: no)")
     ap.add_argument("--out", type=Path, default=Path("bench_hamming.json"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -160,6 +166,25 @@ def main():
         f"{r:g}": chip_smoke.time_cuda(lambda: match_cuda.hamming_top2_windowed(*wargs, r))
         for r in RADII}
     print(f"[time] wrapper: {result['wrapper_ms']}", flush=True)
+    if args.batch:
+        B = args.batch
+        inp = chip_smoke.planted_inputs(16384, 1024, rng, dev, batch=B)
+        bargs = [inp[k] for k in ("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid",
+                                  "b_desc", "b_pm1", "b_uv", "b_lvl", "b_valid")]
+        batched = {"B": B, "warm_ms": {}, "cold_ms": {}, "bound_ms": {}}
+        for r in RADII:
+            chip_smoke.compare_kernel(inp, r)
+            batched["warm_ms"][f"{r:g}"] = chip_smoke.time_cuda(
+                lambda: match_cuda.hamming_top2_windowed(*bargs, r))
+            batched["cold_ms"][f"{r:g}"] = chip_smoke.time_cuda_cold(
+                lambda: match_cuda.hamming_top2_windowed(*bargs, r), flush, n=30)
+            batched["bound_ms"][f"{r:g}"] = chip_smoke.kernel_bound(inp, r)[0]
+            print(f"[batch] B={B} r={r:g}: exact; one launch warm "
+                  f"{batched['warm_ms'][f'{r:g}'] * 1e3:.2f} us, cold "
+                  f"{batched['cold_ms'][f'{r:g}'] * 1e3:.2f} us; {B} x single "
+                  f"{B * result['wrapper_ms'][f'{r:g}'] * 1e3:.2f} us; bound "
+                  f"{batched['bound_ms'][f'{r:g}'] * 1e3:.2f} us", flush=True)
+        result["batched"] = batched
     args.out.parent.mkdir(parents=True, exist_ok=True)
     args.out.write_text(json.dumps(result, indent=1))
     print(json.dumps(result), flush=True)

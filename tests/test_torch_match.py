@@ -228,3 +228,123 @@ def test_match_nn_and_hamming_matrix():
     it, bt, okt = tmatch.match_nn(dt, torch.from_numpy(mask), max_dist=120, ratio=0.9,
                                   ratio_mask=torch.from_numpy(rmask))
     np.testing.assert_array_equal(np.asarray(okj), okt.numpy())
+
+
+# ---- the batch dim (parallel/multiseq.py): B problems in one call ----
+
+def _stack_port(ds):
+    """The wrapper's ten inputs for the problems `ds`, stacked (B, ., .)."""
+    cols = []
+    for d in ds:
+        wa = torch.from_numpy(d["words_a"].view(np.int32))
+        wb = torch.from_numpy(d["words_b"].view(np.int32))
+        cols.append([wa, unpack_pm1(wa), torch.from_numpy(d["a_uv"]),
+                     torch.from_numpy(d["a_lvl"]), torch.from_numpy(d["a_v"]),
+                     wb, unpack_pm1(wb), torch.from_numpy(d["b_uv"]),
+                     torch.from_numpy(d["b_lvl"]), torch.from_numpy(d["b_v"])])
+    return [torch.stack(c) for c in zip(*cols)]
+
+
+@pytest.mark.parametrize("ties,radius", [(False, 15.0), (True, 4.0), (True, 40.0)])
+def test_batched_twin_equals_per_problem_and_xla(ties, radius):
+    """The wrapper on (B, M, .) / (B, N, .) CPU inputs (the batched twin):
+    every problem exactly equal to the per-problem twin and to the JAX XLA
+    path on that problem (best everywhere, idx / second where best < BIG)."""
+    rng = np.random.default_rng(11)
+    ds = [_inputs(rng, 700, 300, width=200.0, ties=ties) for _ in range(3)]
+    best, second, idx = match_cuda.hamming_top2_windowed(*_stack_port(ds), radius)
+    assert best.shape == (3, 700) and best.dtype == torch.int32
+    for b, d in enumerate(ds):
+        one = _port(d, radius)
+        for got, want in zip((best[b], second[b], idx[b]), one):
+            np.testing.assert_array_equal(got.numpy(), want)
+        _assert_same(_xla_reference(d, radius), [t[b].numpy() for t in (best, second, idx)])
+
+
+def test_batched_wrapper_validates_every_batch_dim():
+    """One leading batch dim on every input or on none: a batch on one side
+    only, or unequal B, raises; a batch of two dims raises."""
+    rng = np.random.default_rng(12)
+    args = _stack_port([_inputs(rng, 40, 20) for _ in range(2)])
+    B, M, N = match_cuda.validate_inputs(*args)
+    assert (B, M, N) == (2, 40, 20)
+    for pos in (5, 7, 9):                         # candidates without the batch
+        bad = list(args)
+        bad[pos] = bad[pos][0]
+        with pytest.raises(ValueError):
+            match_cuda.hamming_top2_windowed(*bad, 10.0)
+    bad = list(args)
+    bad[2] = bad[2][:1]                           # uv of one problem only
+    with pytest.raises(ValueError):
+        match_cuda.hamming_top2_windowed(*bad, 10.0)
+    with pytest.raises(ValueError):
+        match_cuda.hamming_top2_windowed(*[a[None] for a in args], 10.0)
+
+
+@pytest.mark.parametrize("with_angles", [False, True])
+def test_batched_search_by_projection_equals_per_problem(with_angles):
+    """search_by_projection with a leading B (one kernel launch on the card):
+    indices, distances and the accepted mask of every problem exactly equal
+    to the unbatched call on that problem (dedup per problem, ties to the
+    lowest row; one rotation histogram per problem)."""
+    rng = np.random.default_rng(13)
+    M, N, B = 900, 200, 3
+    ds = [_inputs(rng, M, N, width=240.0, ties=True) for _ in range(B)]
+    ang_a = torch.from_numpy(rng.uniform(-np.pi, np.pi, (B, M)).astype(np.float32))
+    ang_b = torch.from_numpy(rng.uniform(-np.pi, np.pi, (B, N)).astype(np.float32))
+    part = torch.from_numpy(rng.random((B, M)) < 0.5)
+    wa, pa, uva, la, va, wb, pb, uvb, lb, vb = _stack_port(ds)
+    kw = (lambda s: dict(proj_angle=ang_a[s], feat_angle=ang_b[s],
+                         proj_angle_valid=part[s])) if with_angles else (lambda s: {})
+    it, dt, okt = tmatch.search_by_projection(uva, va, la, wa, pa, uvb, lb, wb, pb, vb,
+                                              radius_px=15.0, **kw(slice(None)))
+    assert it.shape == dt.shape == okt.shape == (B, M)
+    for b in range(B):
+        i1, d1, ok1 = tmatch.search_by_projection(uva[b], va[b], la[b], wa[b], pa[b],
+                                                  uvb[b], lb[b], wb[b], pb[b], vb[b],
+                                                  radius_px=15.0, **kw(b))
+        assert torch.equal(ok1, okt[b]) and torch.equal(d1, dt[b])
+        assert torch.equal(i1[ok1], it[b][ok1])
+        assert int(ok1.sum()) > 20
+
+
+def test_batched_compare_and_bound_helpers_on_cpu():
+    """chip_smoke's batched comparison and bound (the phase "multiseq"):
+    planted_inputs(batch=B) stacks B draws, compare_kernel holds the batch
+    exactly, and the batched bound counts the bytes, pairs and passing pairs
+    of every problem (their sums over the problems drawn alone)."""
+    import chip_smoke
+    inp = chip_smoke.planted_inputs(600, 128, np.random.default_rng(3), "cpu", batch=3)
+    assert inp["a_desc"].shape == (3, 600, 8) and inp["b_pm1"].shape == (3, 128, 256)
+    singles = [{k: v[b] for k, v in inp.items()} for b in range(3)]
+    for radius in chip_smoke.RADII:
+        err, n_has = chip_smoke.compare_kernel(inp, radius)
+        assert err == 0 and n_has == sum(chip_smoke.compare_kernel(s, radius)[1]
+                                         for s in singles)
+        _, _, det = chip_smoke.kernel_bound(inp, radius)
+        parts = [chip_smoke.kernel_bound(s, radius)[2] for s in singles]
+        for key in ("bytes", "pairs", "passing_pairs", "operations"):
+            assert det[key] == sum(p[key] for p in parts), key
+
+
+def test_batched_extract_equals_per_image():
+    """extractor.extract on (B, H, W) against extract on each image: every
+    table equal but the IC angle, whose moments the batch takes in one
+    stacked product (within 1e-4 rad; the descriptor bits stay equal)."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from render import DotWorld
+    from mc_slam_tpu_torch.frontend import extractor
+    imgs = [DotWorld(np.random.default_rng(b), n_wall=300, n_front=80).render(
+        np.eye(3, dtype=np.float32), np.asarray([0.03 * b, 0.01, 0.0], np.float32))
+        for b in range(3)]
+    fb = extractor.extract(torch.from_numpy(np.stack(imgs)), n_features=256, n_levels=3)
+    assert fb.xy.shape == (3, 256, 2) and fb.desc.shape == (3, 256, 8)
+    for b, img in enumerate(imgs):
+        f = extractor.extract(torch.from_numpy(img), n_features=256, n_levels=3)
+        for name in f._fields:
+            if name == "angle":
+                assert (fb.angle[b] - f.angle).abs().max() < 1e-4
+            else:
+                assert torch.equal(getattr(fb, name)[b], getattr(f, name)), name
