@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization,
 loop closing, the mesh-sharded whole-map solvers, checkpoint and resume,
-depth sensors (RGB-D, stereo + IMU), the batched multi-sequence step and the
-multi-host Schur solve on one NVIDIA GPU.
+the asynchronous frame loop against the synchronous mode, depth sensors
+(RGB-D, stereo + IMU), the batched multi-sequence step and the multi-host
+Schur solve on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -111,6 +112,19 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     (the first carries the IMU rows since the keyframe it resumed at). Fails
     on any difference, a lost frame, no kernel launch, or an ATE over those
     frames of 5 cm or more; prints save / load ms and the bytes written;
+    phase "async": those files loaded into two fresh systems that track the
+    30 clone frames after the replayed stretch, A synchronous (LAG_MAX =
+    PAIR = 1) and B the frame loop at the JAX package's defaults (LAG_MAX
+    12, PAIR 2). Prints for each ms per `track` (median, p90), the wall time
+    with the final `flush()` and frames/s, matcher launches, flagged syncs
+    a frame, the harvest pulls, the deepest queue, `ev_chain_drain`,
+    keyframes, events harvested deferred, lost frames, ATE and peak memory;
+    at the very end of the script (the profiler slows what runs after it)
+    the device-busy share of 10 more frames of each. Fails on a lost frame,
+    an ATE of 5 cm or more, B without a trajectory row per frame or with an
+    entry pending after `flush()`, fewer than 15 pairs or no event harvested
+    deferred, B more than 2 cm from A on a frame, or kernel != twin on the
+    searches of B's first pair;
 13. path 6, "euroc-rgbd": a new `SlamSystem` (IMU off, cull_min_obs 2, loop
     closing on) fed the first 120 clone frames with their rendered depth
     through `track(img, t, depth=)`: the map starts metric from frame 0's
@@ -1386,7 +1400,26 @@ def _flat_map(m):
     return out
 
 
-def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CKPT_FRAMES):
+def resume_feed(st, rv, seq: Sequence, first: int, n_frames: int):
+    """What a system resumed from a checkpoint of path 5's system is fed: the
+    source frame of its newest keyframe (from `run_revisit`'s frames), the
+    `n_frames` source frames from `first` on, their times (continuing the
+    keyframe's clock) and IMU rows (the first frame's carry every row since
+    that keyframe's frame: the frames in between are dropped, as a stream
+    that resumes drops them). Returns (src_kf, srcs, times, rows)."""
+    t_kf = st.kf_time_host[st.last_kf_slot]
+    src_kf = next(f["src"] for f in rv["frames"]
+                  if f["src"] is not None and abs(f["t"] - t_kf) < 1e-4)
+    fdt = float(seq.times[1] - seq.times[0])
+    srcs = list(range(first, first + n_frames))
+    times = [t_kf + (i - src_kf) * fdt for i in srcs]
+    rows = [np.concatenate([seq.imu[x] for x in range(src_kf + 1, i + 1)]) if j == 0
+            else seq.imu[i] for j, i in enumerate(srcs)]
+    return src_kf, srcs, times, rows
+
+
+def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CKPT_FRAMES,
+                         keep_dir=None):
     """The phase "checkpoint" on the system path 5 left (loop edges, a broken
     IMU chain, histogram ids): `io.checkpoint.save_system` into a temporary
     directory, `load_system` into a fresh SlamSystem on the same device, every
@@ -1395,11 +1428,14 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
     `first` on (the frame after the replayed stretch). The load reseats tracking at the newest keyframe, so
     the first of them carries the IMU rows since that keyframe's frame (the
     frames in between are dropped, as a stream that resumes drops them).
+    keep_dir: a directory to write the files into and leave them in (the
+    phase "async" loads them), else a temporary one.
     Returns a dict; raises on any difference, a lost frame, no kernel launch,
     or an ATE over those frames of RELOC_POS_TOL or more."""
     dev = slam.device
     cuda = dev.type == "cuda"
-    with tempfile.TemporaryDirectory() as d:
+    with (contextlib.nullcontext(keep_dir) if keep_dir is not None
+          else tempfile.TemporaryDirectory()) as d:
         path = os.path.join(d, "slam.npz")
         _, save_ms = _timed_ms(lambda: checkpoint.save_system(path, slam), cuda)
         size = sum(os.path.getsize(path + ext) for ext in ("", ".bow.npz", ".traj.npz",
@@ -1434,18 +1470,11 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
         raise AssertionError(f"host state differs after the round trip: {bad}")
     # the resumed system goes on from the newest keyframe's frame
     k = st2.last_kf_slot
-    t_kf = st2.kf_time_host[k]
-    src_kf = next(f["src"] for f in rv["frames"]
-                  if f["src"] is not None and abs(f["t"] - t_kf) < 1e-4)
-    fdt = float(seq.times[1] - seq.times[0])
-    srcs = list(range(first, first + n_frames))
-    times = [t_kf + (i - src_kf) * fdt for i in srcs]
+    src_kf, srcs, times, rows = resume_feed(st2, rv, seq, first, n_frames)
     frame_ms, n_ok = [], 0
     hamming_top2_windowed.launches = 0
     for j, i in enumerate(srcs):
-        rows = (np.concatenate([seq.imu[x] for x in range(src_kf + 1, i + 1)]) if j == 0
-                else seq.imu[i])
-        ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows), cuda)
+        ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows[j]), cuda)
         frame_ms.append(ms)
         n_ok += int(ok)
     launches = hamming_top2_windowed.launches
@@ -1459,13 +1488,171 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
         raise AssertionError(f"kernel launched {launches} times for {n_frames} frames")
     if not ate["rmse"] < RELOC_POS_TOL:
         raise AssertionError(f"ATE over the resumed frames {ate}")
-    return dict(save_ms=save_ms, load_ms=load_ms, new_system_ms=new_ms, bytes=size,
+    return dict(path=path if keep_dir is not None else None, save_ms=save_ms, load_ms=load_ms,
+                new_system_ms=new_ms, bytes=size,
                 n_tables=len(a), kf_slots=len(st.kf_slots), loop_edges=list(st.loop_edges),
                 broken_chain_slots=sorted(st.broken_chain_slots), free_slots=list(st.free_slots),
                 n_hist_ids=len(slam.loop.hist_ids), traj_rows=len(tr_b), resume_kf=k,
                 resume_src=src_kf, frames=srcs, n_tracked=n_ok, launches=launches,
                 frame_ms_median=float(np.median(frame_ms)), ate=ate,
                 keyframes_after=new.n_kf - slam.n_kf)
+
+
+ASYNC_FRAMES = 30           # clone frames each mode of the phase "async" tracks (40 took the
+                            # script past 900 s on one host)
+ASYNC_PROFILE_FRAMES = 10   # the window after them that torch.profiler traces
+ASYNC_LAG_MAX, ASYNC_PAIR = 12, 2   # mode B: the JAX package's defaults (mode A: 1, 1)
+ASYNC_POS_TOL = 0.02        # m, B's positions against A's, frame by frame
+ASYNC_MIN_PAIRS = 15        # pairs B must dispatch
+
+
+def device_busy_ms(fn):
+    """Run fn under torch.profiler (device activity only). Returns (fn's
+    result, the wall ms of the call, the summed device ms of its kernels and
+    copies, their count); the device ms is 0 on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        if cuda:
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ns, n = 0, 0
+    # the raw kineto records: building prof.events() takes ~40 s per 300k kernels
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            dev_ns += ev.duration_ns()
+            n += 1
+    return out, wall_ms, dev_ns / 1e6, n
+
+
+def _feed(slam, seq: Sequence, srcs, times, rows, recorder=None, frame_ms=None):
+    """track() on the frames, uploading frame j+1 before tracking frame j;
+    then flush(). Returns the calls' results."""
+    oks = []
+    nxt = slam.upload(seq.imgs[srcs[0]])
+    for j in range(len(srcs)):
+        cur = nxt
+        if j + 1 < len(srcs):
+            nxt = slam.upload(seq.imgs[srcs[j + 1]])
+        if recorder is not None:
+            recorder.frame = j
+        t0 = time.perf_counter()
+        oks.append(slam.track(cur, times[j], rows[j]))
+        if frame_ms is not None:
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+    slam.flush()
+    return oks
+
+
+def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, device,
+                   lag_max: int, pair: int, recorder=None):
+    """One mode of the phase "async": a fresh SlamSystem loads the checkpoint
+    at `path`, takes LAG_MAX / PAIR, and tracks the frames (`_feed`: one
+    frame of upload lookahead, flush() at the end), the matcher's launches
+    counted from 0. Returns (a dict of what it measured, the system)."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    slam = system.SlamSystem(cam, dataclasses.replace(cfg), Tbc=TBC, device=dev)
+    checkpoint.load_system(path, slam)
+    slam.event_kw = dict(event_kw)
+    slam.LAG_MAX, slam.PAIR = lag_max, pair
+    n_kf0, frame_ms = slam.n_kf, []
+    sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    orig = match_cuda.hamming_top2_windowed
+    if recorder is not None:
+        match_cuda.hamming_top2_windowed = recorder
+    hamming_top2_windowed.launches = 0
+    try:
+        with sync_watch(cuda) as caught:
+            t0 = time.perf_counter()
+            oks = _feed(slam, seq, srcs, times, rows, recorder, frame_ms)
+            sync()
+            wall = time.perf_counter() - t0
+            n_sync = count_syncs(caught)
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+    launches = hamming_top2_windowed.launches
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else float("nan")
+    fl, n = slam.fl, len(srcs)
+    traj = [x for x in slam.get_trajectory() if x[0] >= times[0] - 1e-6]
+    ate = ate_rmse(np.asarray([x[0] for x in traj]), np.asarray([x[1] for x in traj]),
+                   np.asarray(times), seq.P[srcs[0]:srcs[-1] + 1], with_scale=True)
+    smp = slam.timers.samples
+    pulls = {k: dict(n=len(smp.get(k, [])), ms=1e3 * float(np.sum(smp.get(k, [0.0]))))
+             for k in ("harvest_pull", "harvest_pull_block")}
+    out = dict(lag_max=lag_max, pair=pair, frames=n, tracked=int(sum(oks)),
+               frame_ms_median=float(np.median(frame_ms)),
+               frame_ms_p90=float(np.percentile(frame_ms, 90)), wall_s=wall, fps=n / wall,
+               launches=launches, launches_per_frame=launches / n, syncs_per_frame=n_sync / n,
+               pulls=pulls, max_depth=fl.max_depth, dispatched=dict(fl.n_dispatched),
+               ev_chain_drain_ms=[1e3 * x for x in smp.get("ev_chain_drain", [])],
+               keyframes=slam.n_kf - n_kf0, events_deferred=fl.n_events_deferred,
+               events_forced=fl.n_events_forced, lost=slam.n_lost_frames,
+               pending_after_flush=len(fl.pendings), rows=len(traj), ate=ate,
+               peak_device_MiB=peak_mb,
+               pos={round(float(t), 6): np.asarray(P) for t, P, _ in traj},
+               last_src=srcs[-1], last_t=times[-1])
+    return out, slam
+
+
+def profile_async_mode(slam, r, seq: Sequence, n_profile: int = ASYNC_PROFILE_FRAMES):
+    """The device-busy share of a system of the phase "async" over the next
+    `n_profile` clone frames after its timed run (`r`, its dict, gets the
+    numbers), under torch.profiler. The profiler slows the launches of what
+    runs after it in the process, so the script runs this last."""
+    first = r["last_src"] + 1
+    src2 = list(range(first, min(first + n_profile, len(seq.imgs))))
+    fdt = float(seq.times[1] - seq.times[0])
+    times2 = [r["last_t"] + (k + 1) * fdt for k in range(len(src2))]
+    _, wall_ms, dev_ms, n_dev = device_busy_ms(
+        lambda: _feed(slam, seq, src2, times2, [seq.imu[i] for i in src2]))
+    r.update(profile_frames=len(src2), profile_wall_ms=wall_ms, profile_device_ms=dev_ms,
+             profile_device_events=n_dev, device_busy_share=dev_ms / wall_ms)
+    return r
+
+
+def run_async_phase(path, slam, rv, seq: Sequence, first: int, n_frames: int = ASYNC_FRAMES):
+    """The phase "async": the checkpoint at `path` (of path 5's system `slam`,
+    whose camera, configuration, event sizes and device it takes; `rv` what
+    `run_revisit` returned) loaded into two fresh systems, which track the
+    same `n_frames` clone frames from `first` on: A in the synchronous mode
+    (LAG_MAX = PAIR = 1), B in the frame loop with the JAX package's defaults
+    (LAG_MAX 12, PAIR 2). Returns ((A's dict, A), (B's dict, B), the
+    recorder of B's first pair's searches); raises on the gates: a lost
+    frame, an ATE of RELOC_POS_TOL or more, B without a trajectory row for
+    each frame or with an entry pending after flush(), fewer than
+    ASYNC_MIN_PAIRS pairs or no event harvested after its copy landed, a
+    position of B more than ASYNC_POS_TOL from A's."""
+    _, srcs, times, rows = resume_feed(slam.st, rv, seq, first, n_frames)
+    args = (path, slam.cam, slam.cfg, slam.event_kw, seq, srcs, times, rows, slam.device)
+    a, sys_a = run_async_mode(*args, 1, 1)
+    rec = SearchRecorder(keep_frames={1}, timed=False)   # B's first pair goes out at frame 1
+    b, sys_b = run_async_mode(*args, ASYNC_LAG_MAX, ASYNC_PAIR, recorder=rec)
+    dpos = [float(np.linalg.norm(b["pos"][k] - a["pos"][k])) for k in a["pos"]
+            if k in b["pos"]]
+    a["dpos_max_m"] = b["dpos_max_m"] = max(dpos) if dpos else float("inf")
+    for name, r in (("A", a), ("B", b)):
+        if r["lost"] or r["tracked"] != n_frames:
+            raise AssertionError(f"mode {name}: {r['lost']} frames lost, {r['tracked']} of "
+                                 f"{n_frames} tracked")
+        if not r["ate"]["rmse"] < RELOC_POS_TOL:
+            raise AssertionError(f"mode {name}: ATE {r['ate']}")
+    if b["rows"] != n_frames or b["pending_after_flush"]:
+        raise AssertionError(f"mode B: {b['rows']} trajectory rows for {n_frames} frames, "
+                             f"{b['pending_after_flush']} entries pending after flush()")
+    if b["dispatched"]["vi2"] < ASYNC_MIN_PAIRS or b["events_deferred"] < 1:
+        raise AssertionError(f"mode B: {b['dispatched']} dispatched, "
+                             f"{b['events_deferred']} events harvested deferred")
+    if len(dpos) != n_frames or max(dpos) >= ASYNC_POS_TOL:
+        raise AssertionError(f"mode B against mode A: {len(dpos)} frames compared, "
+                             f"positions up to {max(dpos, default=float('inf'))} m apart")
+    return (a, sys_a), (b, sys_b), rec
 
 
 @contextlib.contextmanager
@@ -2457,6 +2644,65 @@ def run_multihost_phase():
     return out
 
 
+def _async_line(name, r):
+    pl = r["pulls"]
+    drain = r["ev_chain_drain_ms"]
+    return (f"{name} (LAG_MAX {r['lag_max']}, PAIR {r['pair']}): {r['frames']} frames, "
+            f"ms per track median {r['frame_ms_median']:.1f} p90 {r['frame_ms_p90']:.1f}; "
+            f"{r['wall_s']:.2f} s with the final flush ({r['fps']:.3f} frames/s); matcher "
+            f"launches {r['launches']} ({r['launches_per_frame']:.2f} a frame); flagged syncs "
+            f"{r['syncs_per_frame']:.2f} a frame; harvest_pull {pl['harvest_pull']['n']} / "
+            f"{pl['harvest_pull']['ms']:.2f} ms, harvest_pull_block "
+            f"{pl['harvest_pull_block']['n']} / {pl['harvest_pull_block']['ms']:.2f} ms; "
+            f"deepest queue {r['max_depth']}; dispatched {r['dispatched']}; ev_chain_drain ms "
+            f"{[round(x, 1) for x in drain]}; keyframes {r['keyframes']}, events harvested "
+            f"deferred {r['events_deferred']} / forced {r['events_forced']}; lost {r['lost']}; "
+            f"ATE {r['ate']['rmse'] * 1e3:.2f} mm (< {RELOC_POS_TOL * 1e3:.0f}); peak device "
+            f"memory {r['peak_device_MiB']:.0f} MiB")
+
+
+def async_phase(path, slam, rv, seq: Sequence):
+    """The phase "async" on the card (`run_async_phase`) with its lines.
+    Returns (detail dict, (A's, B's) kernel launches, max kernel-vs-twin
+    error on B's first pair's searches, [(A's dict, A), (B's dict, B)] for
+    `async_profile_phase`)."""
+    t0 = time.time()
+    (a, sys_a), (b, sys_b), rec = run_async_phase(path, slam, rv, seq,
+                                                  REVISIT_SRC + REVISIT_FRAMES)
+    for name, r in (("A", a), ("B", b)):
+        _phase("async", _async_line(name, r))
+    err, n_real = _real_search_check(rec)
+    if n_real < 4:
+        raise AssertionError(f"{n_real} searches recorded at B's first pair")
+    _phase("async", f"B against A: positions within {b['dpos_max_m'] * 1e3:.2f} mm frame by "
+                    f"frame (< {ASYNC_POS_TOL * 1e3:.0f}); B is {a['wall_s'] / b['wall_s']:.3f} x "
+                    f"A's frame rate; kernel == twin on the {n_real} real searches of B's first "
+                    f"pair ({time.time() - t0:.1f} s)")
+    strip = lambda r: {k: v for k, v in r.items() if k != "pos"}
+    return ({"A": strip(a), "B": strip(b)}, (a["launches"], b["launches"]), err,
+            [(a, sys_a), (b, sys_b)])
+
+
+def async_profile_phase(modes, seq: Sequence, detail):
+    """The device-busy share of the phase "async"'s two systems over the 10
+    clone frames after their timed runs, last in the script."""
+    t0 = time.time()
+    for r, s in modes:
+        profile_async_mode(s, r, seq)
+    (a, _), (b, _) = modes
+    _phase("async", f"device busy over {a['profile_frames']} more frames (torch.profiler, apart "
+                    f"from the timed run, after every other phase): A "
+                    f"{100 * a['device_busy_share']:.2f} % ({a['profile_device_ms']:.1f} of "
+                    f"{a['profile_wall_ms']:.1f} ms, {a['profile_device_events']} kernels and "
+                    f"copies), B {100 * b['device_busy_share']:.2f} % "
+                    f"({b['profile_device_ms']:.1f} of {b['profile_wall_ms']:.1f} ms, "
+                    f"{b['profile_device_events']}) ({time.time() - t0:.1f} s)")
+    for name, r in (("A", a), ("B", b)):
+        detail[name].update({k: r[k] for k in ("profile_frames", "profile_wall_ms",
+                                               "profile_device_ms", "profile_device_events",
+                                               "device_busy_share")})
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -2637,7 +2883,9 @@ def main():
 
     # ---- phase "checkpoint": save, load into a fresh system, track on ----
     t0 = time.time()
-    ck = run_checkpoint_phase(slam4, seq_boot, rv5, REVISIT_SRC + REVISIT_FRAMES)
+    ck_dir = tempfile.TemporaryDirectory()
+    ck = run_checkpoint_phase(slam4, seq_boot, rv5, REVISIT_SRC + REVISIT_FRAMES,
+                              keep_dir=ck_dir.name)
     launches_ckpt = ck["launches"]
     _phase("checkpoint", f"save_system {ck['save_ms']:.1f} ms, {ck['bytes']} bytes "
                          f"(map, BoW side file, trajectory side file); a fresh SlamSystem "
@@ -2655,6 +2903,11 @@ def main():
                          f"{ck['ate']['rmse'] * 1e3:.2f} mm over those frames (< "
                          f"{RELOC_POS_TOL * 1e3:.0f}), alignment scale "
                          f"{ck['ate']['scale']:.4f} ({time.time() - t0:.1f} s)")
+
+    # ---- phase "async": the saved state through the synchronous mode and the frame loop ----
+    detail_as, launches_async, err, async_modes = async_phase(ck["path"], slam4, rv5, seq_boot)
+    max_err = max(max_err, err)
+    ck_dir.cleanup()
     del res4, slam4, lp5
 
     # ---- phase 8: path 6, RGB-D from the clone's rendered depth, no IMU ----
@@ -2681,16 +2934,23 @@ def main():
     # ---- phase "multihost": the process-group Schur solve ----
     detail_mh = run_multihost_phase()
 
+    # ---- the phase "async"'s device-busy windows, last: the profiler slows what follows ----
+    async_profile_phase(async_modes, seq_boot, detail_as)
+    del async_modes
+
     bound_ms, bound_by, bound_detail = bounds[15.0]
     launches_paths = (launches_loc + launches_map + launches_boot + launches_sys
                       + launches_rev + launches_ckpt + launches_rgbd + launches_stereo)
     _phase("launches", f"paths 1-7 and the phase \"checkpoint\": {launches_loc} + "
                        f"{launches_map} + {launches_boot} + {launches_sys} + {launches_rev} + "
                        f"{launches_ckpt} + {launches_rgbd} + {launches_stereo} = "
-                       f"{launches_paths}; phase \"multiseq\": {rec_ms['launches']}")
+                       f"{launches_paths}; phase \"async\": {launches_async[0]} + "
+                       f"{launches_async[1]}; phase \"multiseq\": {rec_ms['launches']}")
+    launches_paths += sum(launches_async)
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "shape": "M=16384 x N=1024 (paths 1-7)",
+        "replaces": KERNEL_REPLACES,
+        "shape": "M=16384 x N=1024 (paths 1-7, phases checkpoint and async)",
         "launches": launches_paths,
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
@@ -2721,6 +2981,7 @@ def main():
                         "peak_device_MiB": peak_mb},
               "path3": detail3, "path4": detail4, "path5": detail5, "path6": detail6,
               "path7": detail7, "mesh": {"gba": mg, "posegraph": mp}, "checkpoint": ck,
+              "async": detail_as,
               "multiseq": detail_ms, "multihost": detail_mh,
               "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),

@@ -109,14 +109,19 @@ HOST_FIELDS = {
     "sensor_depth": "sensor_depth"}
 
 
-def host_state_to_dict(st, traj=None):
+def host_state_to_dict(st, traj=None, ts=None):
     """The MappingState `st` (and the TrajStore `traj`) as a dict of Python
     and numpy values keyed by the JAX SlamSystem's attribute names, plus
     "kf_imu_raw" (slot -> (T, 7) numpy), "covis_row" (numpy or None; the JAX
-    class keeps it as `_covis_row_cache = (slot, row)`), and, with `traj`,
-    "traj_rows" (four stacked numpy arrays or None) and "traj_meta"."""
+    class keeps it as `_covis_row_cache = (slot, row)`), with `traj`,
+    "traj_rows" (four stacked numpy arrays or None) and "traj_meta", and with
+    a TrackState `ts`, "imu_since_kf" and "imu_since_frame": lists of (frame
+    id, (T, 7) numpy), the JAX attributes' form."""
     import copy
     out = {jax_name: copy.deepcopy(getattr(st, f)) for f, jax_name in HOST_FIELDS.items()}
+    if ts is not None:
+        for name in ("imu_since_kf", "imu_since_frame"):
+            out[name] = [(int(f), r.detach().cpu().numpy()) for f, r in getattr(ts, name)]
     out["kf_imu_raw"] = {k: v.detach().cpu().numpy() for k, v in st.kf_imu_raw.items()}
     out["covis_row"] = None if st.covis_row is None else np.array(st.covis_row)
     if traj is not None:

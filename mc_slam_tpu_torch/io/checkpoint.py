@@ -21,7 +21,13 @@ the mapping's caches of the last event (reference count, covisibility row,
 loop cooldown). Loaded with it, the resumed system tracks on exactly as the
 uninterrupted one would; without it (a JAX file, or a save between
 keyframes) the load is the JAX reseat, and the first frames after it are
-tracked without the last frame's associations.
+tracked without the last frame's associations. It also holds the IMU rows
+kept for the next keyframe, each row with the id of its frame
+(`imu_fid`, `imu_rows`; none at a keyframe's frame unless frames were in
+flight).
+
+`save_system` drains the frame loop first (`SlamSystem.flush`); a load
+starts with nothing in flight.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from mc_slam_tpu_torch import convert
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import PreintState
-from mc_slam_tpu_torch.pipeline import mapping_ctl, tracking_ctl
+from mc_slam_tpu_torch.pipeline import frameloop, mapping_ctl, tracking_ctl
 from mc_slam_tpu_torch.pipeline.pipebase import LOST, NO_IMAGES_YET, OK
 from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
 from mc_slam_tpu_torch.slam_map.mapstate import MapState
@@ -130,6 +136,10 @@ def _save_tracker(path, sys):
         return
     out = {f: getattr(ts, f).detach().cpu().numpy() for f in TRACK_TENSORS}
     out.update({f: np.asarray(getattr(ts, f)) for f in TRACK_SCALARS})
+    rows = [(f, r.detach().cpu().numpy()) for f, r in ts.imu_since_kf]
+    out["imu_fid"] = np.asarray([f for f, r in rows for _ in range(len(r))], np.int64)
+    out["imu_rows"] = (np.concatenate([r for _, r in rows]) if rows
+                       else np.zeros((0, 7), np.float32))
     out.update({f"st.{f}": np.asarray(getattr(st, f)) for f in MAPPING_CACHES
                 if getattr(st, f) is not None})
     np.savez_compressed(path, **out)
@@ -146,6 +156,10 @@ def _load_tracker(path, ts, st, device):
         ts.has_prev = bool(tk["has_prev"])
         ts.n_inliers = int(tk["n_inliers"])
         ts.last_time = float(tk["last_time"])
+        if "imu_fid" in tk.files:
+            fid, rows = tk["imu_fid"], tk["imu_rows"]
+            ts.imu_since_kf = [(int(f), torch.as_tensor(rows[fid == f], device=device))
+                               for f in dict.fromkeys(fid.tolist())]
         for f in MAPPING_CACHES:
             if f"st.{f}" in tk.files:
                 v = tk[f"st.{f}"]
@@ -200,6 +214,7 @@ def load_system(path, sys):
                                              device=sys.device)
                      for k, v in extra["kf_imu_raw"].items()}
     sys.m, sys.st = m, st
+    sys.fl = frameloop.LoopState()
     sys.frame_id = int(extra["frame_id"])
     sys.state = int(extra["state"])
     sys._ref, sys._init_rows = None, []

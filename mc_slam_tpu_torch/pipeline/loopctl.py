@@ -1,13 +1,19 @@
-"""Loop-closure orchestration (port of the synchronous branch of
-mc_slam_tpu/pipeline/loopctl.py, the roles of LoopClosing::Run / ComputeSim3 /
-CorrectLoop): detection gating, the Sim3 batch and its harvest, the guided
-verification, and the application of an accepted closure. Module functions
-over the `MappingState` / `TrackState` of mapping_ctl / tracking_ctl and a
-`LoopContext` (the detector, the RANSAC stream, the event log, the timers).
+"""Loop-closure orchestration (port of mc_slam_tpu/pipeline/loopctl.py, the
+roles of LoopClosing::Run / ComputeSim3 / CorrectLoop): detection gating, the
+Sim3 batch and its harvest, the guided verification, and the application of
+an accepted closure. Module functions over the `MappingState` / `TrackState`
+of mapping_ctl / tracking_ctl and a `LoopContext` (the detector, the RANSAC
+stream, the event log, the timers).
 
-Every stage is consumed as soon as it is dispatched (the JAX package's
-`sync=True` form); its readiness-gated deferred harvest belongs to the
-asynchronous frame loop and is not ported.
+Two forms. `try_close_loop` consumes every stage as soon as it is dispatched
+(the JAX package's `sync=True` form; the synchronous frame path). The frame
+loop (pipeline/frameloop.py) takes the deferred one: `dispatch_sim3` queues
+detection's Sim3 batch and starts its copy, `harvest_sim3_pending` reads it
+once it has landed and queues the guided verification of the first passing
+candidate (`dispatch_verify_pending`), `harvest_verify_pending` reads that
+count and closes the loop or queues the next candidate: one verification a
+harvest, at most one Sim3 batch in flight. The RANSAC samples are drawn from
+`LoopContext.generator` at dispatch, in the order of dispatch.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from mc_slam_tpu_torch.camera import Camera
 from mc_slam_tpu_torch.geometry.sim3solver import Sim3Result
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise
 from mc_slam_tpu_torch.pipeline import loopclosing, mapping, mapping_ctl
+from mc_slam_tpu_torch.pipeline.pipebase import HostCopy
 from mc_slam_tpu_torch.slam_map.mapstate import (MapState, covisibility_weights,
                                                  observation_counts)
 from mc_slam_tpu_torch.solver import factors
@@ -196,6 +203,103 @@ def harvest_verify(st: mapping_ctl.MappingState, loop: LoopContext, frame_id: in
     loop.events.append((frame_id, "verify_result", detail))
     log.append(detail)
     return n_guided >= MIN_GUIDED and cv["c"] in st.kf_slots
+
+
+class PendingSim3(NamedTuple):
+    """A Sim3 batch in flight (`dispatch_sim3`)."""
+    slot: int                    # the current keyframe
+    cands: list                  # the real candidates, in the batch's order
+    copy: HostCopy               # its (C, 15) packed rows
+
+
+class PendingVerify(NamedTuple):
+    """A guided verification in flight (`dispatch_verify_pending`)."""
+    slot: int
+    passing: list                # the RANSAC-passing candidates (harvest_sim3's dicts)
+    idx: int                     # the one being verified
+    copy: HostCopy               # its guided-match count
+
+
+def dispatch_sim3(m: MapState, st: mapping_ctl.MappingState, cfg, loop: LoopContext,
+                  slot: int, frame_id: int, cam: Camera, ext: factors.Extrinsics,
+                  handles=None, idx=None):
+    """The dispatch of `try_close_loop` (SlamSystem._try_close_loop with
+    handles): detection on `handles`, the candidates (2 streaked at bar 20, 1
+    other at bar 40) through ONE batched Sim3 RANSAC + refinement, its copy
+    to the host started and not waited for; the "lc_diag" and
+    "sim3_dispatch" events. idx: (3, 300, 3) samples, drawn from
+    loop.generator when None. Host reads: the detection's.
+    Returns a PendingSim3, or None (gates shut, no candidate)."""
+    if not loop_gates_open(st, cfg, loop) or slot not in st.kf_slots:
+        return None
+    with loop.stage("lc_detect"):
+        cands = loop.detector.detect(m, slot, list(st.kf_slots), kf_ids=st.kf_id_host,
+                                     handles=handles)
+    if loop.detector.last_diag is not None:
+        loop.events.append((frame_id, "lc_diag", dict(loop.detector.last_diag)))
+    todo = ([(c, BAR_STREAKED) for c, s in cands if s][:2]
+            + [(c, BAR_FALLBACK) for c, s in cands if not s][:1])
+    if not todo:
+        return None
+    pad = (todo + [(todo[0][0], BAR_PAD)] * N_CAND)[:N_CAND]
+    both = torch.as_tensor(np.asarray(pad, np.int64), device=m.mp_pos.device)
+    with loop.stage("lc_sim3"):
+        packed = loopclosing.sim3_ransac_batch(m, idx, slot, both[:, 0], both[:, 1], cam,
+                                               ext=ext, fix_scale=st.vi_inited,
+                                               generator=loop.generator)
+        copy = HostCopy(packed)
+    loop.events.append((frame_id, "sim3_dispatch", dict(
+        cur_fid=st.kf_id_host.get(slot, -1),
+        cand_fids=[st.kf_id_host.get(int(c), -1) for c, _ in todo])))
+    return PendingSim3(slot, [c for c, _ in todo], copy)
+
+
+def dispatch_verify_pending(m: MapState, st: mapping_ctl.MappingState, cfg,
+                            loop: LoopContext, slot: int, passing: list, i: int, cam: Camera,
+                            ext: factors.Extrinsics) -> PendingVerify:
+    """Queue the guided verification of passing[i] and start its copy."""
+    h = dispatch_verify(m, st, cfg, loop, slot, passing[i], cam, ext)
+    return PendingVerify(slot, passing, i, HostCopy(h.reshape(1)))
+
+
+def harvest_sim3_pending(m: MapState, st: mapping_ctl.MappingState, cfg, loop: LoopContext,
+                         p: PendingSim3, frame_id: int, cam: Camera, ext: factors.Extrinsics):
+    """Read a Sim3 batch (SlamSystem._harvest_sim3; waits if its copy has not
+    landed): the "sim3_result" event, then the verification of the first
+    passing candidate queued. Nothing when the keyframe is gone or the gates
+    have shut meanwhile. Returns a PendingVerify or None."""
+    if p.slot not in st.kf_slots or not loop_gates_open(st, cfg, loop):
+        return None
+    with loop.stage("lc_sim3_pull"):
+        rows = p.copy.numpy()
+    passing, _ = harvest_sim3(st, loop, frame_id, rows, p.cands)
+    if not passing:
+        return None
+    return dispatch_verify_pending(m, st, cfg, loop, p.slot, passing, 0, cam, ext)
+
+
+def harvest_verify_pending(m: MapState, st: mapping_ctl.MappingState, cfg, ts,
+                           loop: LoopContext, v: PendingVerify, frame_id: int, cam: Camera,
+                           ext: factors.Extrinsics, noise: IMUNoise):
+    """Read a guided-match count (SlamSystem._harvest_verify; waits if its
+    copy has not landed): the "verify_result" event, then the closure
+    (`apply_closure`) when it reaches 40, else the next passing candidate's
+    verification queued. Returns (m, PendingVerify or None, the "loop"
+    event's detail or None)."""
+    if v.slot not in st.kf_slots or not loop_gates_open(st, cfg, loop):
+        return m, None, None
+    with loop.stage("lc_verify_pull"):
+        n_guided = int(v.copy.numpy()[0])
+    cv = v.passing[v.idx]
+    if harvest_verify(st, loop, frame_id, cv, n_guided, []):
+        m, closed, _ = apply_closure(m, st, cfg, ts, loop, v.slot, cv["c"], cv, frame_id, cam,
+                                     ext, noise)
+        return m, None, closed
+    nxt = v.idx + 1
+    if nxt < len(v.passing) and v.passing[nxt]["c"] in st.kf_slots:
+        return m, dispatch_verify_pending(m, st, cfg, loop, v.slot, v.passing, nxt, cam,
+                                          ext), None
+    return m, None, None
 
 
 def fuse_seam(m, loop_side, cur_side, n, cam, ext):

@@ -1,10 +1,12 @@
 """Host control of the keyframe event (port of the event path of
 mc_slam_tpu/pipeline/mapping_ctl.py and of SlamSystem._insert_kf_raw).
 
-The JAX package keeps these as methods of SlamSystem's mixins, dispatched
-asynchronously with a deferred harvest. Here they are plain synchronous
+The JAX package keeps these as methods of SlamSystem's mixins. Here they are
 module functions over an explicit `MappingState`, which the orchestrator
-class (pipeline/system.py) holds. Covered: keyframe insertion before and after VI
+class (pipeline/system.py) holds; the event comes in two halves,
+`dispatch_event` (device work and the stats copy, not waited for) and
+`harvest_event` (stats noted, keyframes culled), which the frame loop
+(pipeline/frameloop.py) calls apart and `keyframe_event` back to back. Covered: keyframe insertion before and after VI
 initialization (`insert_keyframe`), the IMU edge lists (`imu_edge_lists`),
 the covisibility queries, every branch of `_local_ba` (`local_ba`: the
 visual window before VI init, the whole-map `force_all` form in its visual
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import TYPE_CHECKING, NamedTuple
 
 import numpy as np
@@ -45,6 +48,7 @@ from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise, preintegrate
 from mc_slam_tpu_torch.parallel import dist_ba, dist_gba
 from mc_slam_tpu_torch.pipeline import mapping
+from mc_slam_tpu_torch.pipeline.pipebase import HostCopy
 from mc_slam_tpu_torch.slam_map.mapstate import (MapState, _set_drop,
                                                  covisibility_weights)
 from mc_slam_tpu_torch.solver import ba, ba_chunked, ba_vi, ba_vi_idp, factors
@@ -753,28 +757,33 @@ def add_depth_points(m: MapState, cfg: SlamConfig, cam: Camera, ext: factors.Ext
     return m
 
 
-def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int,
-                   cam: Camera, ext: factors.Extrinsics, gw, noise: IMUNoise,
-                   hists=None, timer=None, traj=None, max_new=256, ba_Pw=4096):
-    """One keyframe event in SlamSystem._local_mapping's order, ended as
-    _harvest_event ends it: the pre-BA half (cull / evict, neighbours,
-    triangulation, fusion), the local BA of the state's branch (`local_ba`:
-    visual window before VI init, inverse-depth VI window after), the post-BA
-    half (point-statistics refresh, stats, covisibility); then ONE
-    device->host copy of the stats: the covisibility row and the
-    well-observed count are kept for the next decisions (`note_event_stats`),
-    and the redundancy of every keyframe serves the first round of
-    `cull_keyframes`. The visual branch may read one covisibility row on the
-    host (before the first event has left one); nothing else before the
-    stats copy reads a device value.
+class PendingEvent(NamedTuple):
+    """A keyframe event up to its stats copy (`dispatch_event`), waiting for
+    `harvest_event`."""
+    slot: int
+    copy: HostCopy             # [n_well, covis row (K), red_ratio (K), n_pts (K)]
+    stats: tuple
+    detect: tuple | None
+    n_created: torch.Tensor
+    n_fused: torch.Tensor
+    n_culled: torch.Tensor
+    ba: BAStats | None
+    t_disp: float              # host clock when the stats copy was queued
 
-    hists: (K, W) BoW histograms of the loop detector; None without place
-    recognition (then `EventResult.detect` is None).
-    timer: optional callable(stage_name) invoked before "pre", "ba", "post",
-    "cull" and "end" (a CUDA-event recorder). traj: the TrajStore whose rows
-    follow a culled keyframe to its heir. max_new: new points per neighbour
-    pair; ba_Pw: landmark slots of the VI window BA.
-    Returns (m, EventResult)."""
+
+def dispatch_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int,
+                   cam: Camera, ext: factors.Extrinsics, gw, noise: IMUNoise,
+                   hists=None, timer=None, max_new=256, ba_Pw=4096, wait=False):
+    """The device half of one keyframe event, in SlamSystem._local_mapping's
+    order: the pre-BA half (cull / evict, neighbours, triangulation,
+    fusion), the local BA of the state's branch (`local_ba`: visual window
+    before VI init, inverse-depth VI window after), the post-BA half
+    (point-statistics refresh, stats, covisibility, detection scores), then
+    ONE copy of the stats to the host, started and not waited for unless
+    `wait`. The visual branch may read one covisibility row on the host
+    (before the first event has left one); nothing else reads a device
+    value. hists / timer / max_new / ba_Pw: as `keyframe_event`'s.
+    Returns (m, PendingEvent)."""
     slot = st.last_kf_slot
     dev = m.mp_pos.device
     mark = timer if timer is not None else (lambda name: None)
@@ -795,16 +804,53 @@ def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int
         min_obs=(2 if len(st.kf_slots) <= 2 else 3), refresh=cfg.refresh_stats)
     mark("cull")
     covis, red, npts, _, well = stats
-    K = m.K
-    host = torch.cat([well.to(torch.float32).reshape(1), covis, red,
-                      npts.to(torch.float32)]).cpu().numpy()
-    note_event_stats(st, host[1:1 + K], host[0])
-    m, removed = cull_keyframes(m, st, cfg, noise, traj=traj,
-                                ratio_all=host[1 + K:1 + 2 * K], npts_all=host[1 + 2 * K:])
-    mark("end")
-    return m, EventResult(n_created=n_new, n_fused=n_fused, n_culled=n_culled,
-                          ba=ba_stats, stats=stats, removed=tuple(removed),
-                          detect=(scores, W) if with_hists else None)
+    copy = HostCopy(torch.cat([well.to(torch.float32).reshape(1), covis, red,
+                               npts.to(torch.float32)]), wait=wait)
+    return m, PendingEvent(slot, copy, stats, (scores, W) if with_hists else None, n_new,
+                           n_fused, n_culled, ba_stats, time.perf_counter())
+
+
+def harvest_event(m: MapState, st: MappingState, cfg: SlamConfig, noise: IMUNoise,
+                  ev: PendingEvent, traj=None):
+    """The host half of a keyframe event (SlamSystem._harvest_event): the
+    stats copy is read (it waits if it has not landed), the covisibility row
+    and the well-observed count are kept for the next decisions
+    (`note_event_stats`), and the redundancy of every keyframe serves the
+    first round of `cull_keyframes`; nothing is done for a keyframe that is
+    gone by then. traj: the TrajStore whose rows follow a culled keyframe to
+    its heir. Returns (m, EventResult)."""
+    host = ev.copy.numpy()
+    removed = []
+    if ev.slot in st.kf_slots:
+        K = m.K
+        note_event_stats(st, host[1:1 + K], host[0])
+        m, removed = cull_keyframes(m, st, cfg, noise, traj=traj,
+                                    ratio_all=host[1 + K:1 + 2 * K], npts_all=host[1 + 2 * K:])
+    return m, EventResult(n_created=ev.n_created, n_fused=ev.n_fused, n_culled=ev.n_culled,
+                          ba=ev.ba, stats=ev.stats, removed=tuple(removed), detect=ev.detect)
+
+
+def keyframe_event(m: MapState, st: MappingState, cfg: SlamConfig, frame_id: int,
+                   cam: Camera, ext: factors.Extrinsics, gw, noise: IMUNoise,
+                   hists=None, timer=None, traj=None, max_new=256, ba_Pw=4096):
+    """One keyframe event in SlamSystem._local_mapping's order, ended as
+    _harvest_event ends it: `dispatch_event` (pre-BA half, local BA, post-BA
+    half, the stats copy, waited for) then `harvest_event` (stats noted,
+    keyframes culled).
+
+    hists: (K, W) BoW histograms of the loop detector; None without place
+    recognition (then `EventResult.detect` is None).
+    timer: optional callable(stage_name) invoked before "pre", "ba", "post",
+    "cull" and "end" (a CUDA-event recorder). traj: the TrajStore whose rows
+    follow a culled keyframe to its heir. max_new: new points per neighbour
+    pair; ba_Pw: landmark slots of the VI window BA.
+    Returns (m, EventResult)."""
+    m, ev = dispatch_event(m, st, cfg, frame_id, cam, ext, gw, noise, hists=hists, timer=timer,
+                           max_new=max_new, ba_Pw=ba_Pw, wait=True)
+    m, res = harvest_event(m, st, cfg, noise, ev, traj=traj)
+    if timer is not None:
+        timer("end")
+    return m, res
 
 
 def note_event_stats(st: MappingState, covis_row, n_well):

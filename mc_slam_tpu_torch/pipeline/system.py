@@ -1,14 +1,29 @@
 """The SLAM system: configuration, the orchestrator class and map
 initialization (port of mc_slam_tpu/pipeline/system.py).
 
-`SlamSystem(cam, cfg, Tbc).track(img, t, imu)` is the port's entry point. It
-is synchronous: a frame is tracked, its summary read and its decisions taken
-(LOST, keyframe -> event -> culling, VI-init attempt) before the next frame,
-which is what the JAX package does in its parity mode (one frame per
-dispatch, pipeline depth 1, every summary consumed at once). The class holds
-the `MappingState` and `TrackState` that the step functions of mapping_ctl /
-tracking_ctl / viinit_ctl work on and exposes their fields under the JAX
-class's attribute names; it keeps no second copy of them.
+`SlamSystem(cam, cfg, Tbc).track(img, t, imu)` is the port's entry point. Two
+modes, chosen at construction by `MC_SLAM_LAG_MAX` and `MC_SLAM_PAIR` (the JAX
+package's variables; attributes `LAG_MAX`, `PAIR`):
+
+* both unset or 1, the default: synchronous. A frame is tracked, its summary
+  read and its decisions taken (LOST, keyframe -> event -> culling -> loop
+  closing, VI-init attempt) before `track` returns: the decisions of the JAX
+  package's parity mode (one frame a dispatch, pipeline depth 1), taken at
+  the end of the same call rather than at the start of the next;
+* otherwise the asynchronous frame loop (pipeline/frameloop.py, the JAX
+  package's default with LAG_MAX 12, PAIR 2): a steady frame is dispatched
+  and its decisions taken up to LAG_MAX entries later, PAIR VI frames a
+  dispatch; the keyframe event's host half and the loop-closing stages are
+  harvested when their copies land. Off the steady state (not OK, a depth
+  frame, the relocalization window) every entry is drained first and the
+  frame takes the synchronous path. `flush()` (and `get_trajectory`,
+  `global_refine`, `set_localization_mode`, `io.checkpoint.save_system`)
+  drains.
+
+The class holds the `MappingState` and `TrackState` that the step functions
+of mapping_ctl / tracking_ctl / viinit_ctl work on, and the frame loop's
+`LoopState` (`fl`), and exposes their fields under the JAX class's attribute
+names; it keeps no second copy of them.
 
 Place recognition is on by default, as in the JAX class: the constructor
 loads the shipped 32768-word vocabulary and builds the `LoopDetector`; every
@@ -27,9 +42,7 @@ row, every keyframe adds its nearest unmatched depth points, and the VI
 window BA takes its XYZ form. With and without the IMU.
 
 `enable_mesh` shards the whole-map VI BA and the essential graph over a
-device mesh (`parallel/`). Not ported: the asynchronous frame pipeline (pair
-fusion, deferred harvest of frames, events, Sim3 batches and verifications,
-rollback).
+device mesh (`parallel/`).
 
 Also here: the monocular two-view bootstrap `try_initialize`
 (SlamSystem._try_initialize), as a module function of explicit state.
@@ -37,6 +50,7 @@ Also here: the monocular two-view bootstrap `try_initialize`
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -49,8 +63,8 @@ from mc_slam_tpu_torch.geometry import init2view
 from mc_slam_tpu_torch.imu.navstate import navstate_identity
 from mc_slam_tpu_torch.imu.preintegration import IMUNoise, euroc_noise
 from mc_slam_tpu_torch.parallel import dist_ba
-from mc_slam_tpu_torch.pipeline import (loopclosing, loopctl, mapping, mapping_ctl, tracking,
-                                        tracking_ctl)
+from mc_slam_tpu_torch.pipeline import (frameloop, loopclosing, loopctl, mapping, mapping_ctl,
+                                        tracking, tracking_ctl)
 from mc_slam_tpu_torch.pipeline.pipebase import LOST, NO_IMAGES_YET, NOT_INITIALIZED, OK
 from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
@@ -224,13 +238,14 @@ class SlamSystem:
     JAX class's: `track`, `upload`, `flush`, `get_trajectory`,
     `global_refine`, `reset`, `set_localization_mode`, and the attributes
     `state`, `m`, `vi_inited`, `gw`, `kf_slots`, `n_kf`, `frame_id`,
+    `LAG_MIN`, `LAG_MAX`, `PAIR`,
     `n_lost_frames`, `events`, `timers`, `traj`, `last_ns`, `last_pose`,
     `viinit_log`, `loop`, `enable_loop_closing`, `n_loops_closed`,
     `loop_edges`, `reloc_buf`, `reloc_window`, `sensor_depth`, `mesh`, `mesh_e`;
     `enable_mesh`; `io.checkpoint.save_system` / `load_system` persist and
-    restore it. `st` (mapping_ctl.MappingState) and `ts`
-    (tracking_ctl.TrackState, None until the map is initialized) hold the
-    state itself."""
+    restore it. `st` (mapping_ctl.MappingState), `ts`
+    (tracking_ctl.TrackState, None until the map is initialized) and `fl`
+    (frameloop.LoopState) hold the state itself."""
 
     def __init__(self, cam: Camera, cfg: SlamConfig | None = None,
                  Tbc: np.ndarray | None = None, noise: IMUNoise | None = None,
@@ -287,6 +302,14 @@ class SlamSystem:
         # marks of a keyframe event / a VI-init attempt
         self.event_probe = None
         self.vi_probe = None
+        # the frame loop: an entry is harvested once its summary has landed
+        # and LAG_MIN entries are in flight, at the latest at LAG_MAX; PAIR
+        # VI frames a dispatch. 1 / 1 (the default here; the JAX package's is
+        # 12 / 2) is the synchronous path
+        self.LAG_MIN = 1
+        self.LAG_MAX = int(os.environ.get("MC_SLAM_LAG_MAX", "1"))
+        self.PAIR = int(os.environ.get("MC_SLAM_PAIR", "1"))
+        self.fl = frameloop.LoopState()
 
     # ---- the state, under the JAX class's names ----
     vi_inited = property(lambda self: self.st.vi_inited)
@@ -380,7 +403,9 @@ class SlamSystem:
 
     def set_localization_mode(self, on: bool):
         """Activate / DeactivateLocalizationMode: track against the frozen
-        map, inserting no keyframe and mapping nothing."""
+        map, inserting no keyframe and mapping nothing (the frames in flight
+        are decided first)."""
+        frameloop.harvest_pending(self, drain=True)
         self.localization_only = bool(on)
 
     def reset(self):
@@ -423,6 +448,17 @@ class SlamSystem:
             return imu.to(self.device, torch.float32)
         return torch.from_numpy(np.ascontiguousarray(imu, np.float32)).to(self.device)
 
+    @property
+    def async_loop(self) -> bool:
+        """Whether `track` takes the frame loop on steady frames."""
+        return self.LAG_MAX > 1 or self.PAIR > 1
+
+    def _summary_ready(self, p) -> bool:
+        """Whether a pending entry's summary copy has landed (the JAX
+        method's name; a test may replace it on the instance to pin the
+        readiness rule)."""
+        return p.summary.ready()
+
     def track(self, img, t, imu=None, depth=None, img_right=None) -> bool:
         """Process one frame. img: (H, W) uint8 or float32, a host array or a
         tensor staged by `upload`; t: time in seconds; imu: (T, 7) rows
@@ -430,11 +466,40 @@ class SlamSystem:
         depth map (RGB-D); img_right: the rectified right image (stereo).
         Returns whether the frame was tracked (False while the map is not
         initialized, and when LOST). A LOST system tries to relocalize on
-        every frame, and so does the frame on which tracking is lost."""
-        cfg = self.cfg
+        every frame, and so does the frame on which tracking is lost. In the
+        frame loop a steady frame returns True at once: its loss shows at a
+        later call (state LOST, a "lost" event)."""
         rows = self._imu_rows(imu)
         img = self.upload(img)
         t = float(t)
+        if not self.async_loop:
+            return self._track_sync(img, t, rows, depth, img_right)
+        # the due decisions first, before this frame's rows join: a keyframe
+        # cut at an earlier frame takes exactly its own IMU span
+        frameloop.harvest_pending(self)
+        if self.state == OK and depth is None and img_right is None \
+                and self.ts.reloc_buf is None:
+            ts = self.ts
+            if rows is not None and rows.shape[0]:
+                ts.imu_since_kf.append((self.frame_id, rows))
+                ts.imu_since_frame.append((self.frame_id, rows))
+            with self.timers.stage("track"):
+                if not self.st.vi_inited:
+                    frameloop.dispatch_frame_visual(self, img, t)
+                elif self.PAIR > 1:
+                    frameloop.pair_push(self, img, t)
+                else:
+                    frameloop.dispatch_frame_vi(self, img, t)
+            self.last_time = t
+            self.frame_id += 1
+            return True
+        # off the steady state: every frame in flight is decided first
+        frameloop.harvest_pending(self, drain=True)
+        return self._track_sync(img, t, rows, depth, img_right)
+
+    def _track_sync(self, img, t, rows, depth=None, img_right=None) -> bool:
+        """One frame through the synchronous path (see `track`)."""
+        cfg = self.cfg
         ok = False
         depth_mode = depth is not None or img_right is not None
         frame = fd = None
@@ -600,8 +665,8 @@ class SlamSystem:
     def _keep_rows(self, rows):
         """IMU rows of a frame that the trackers do not consume themselves."""
         if rows is not None and rows.shape[0]:
-            self.ts.imu_since_kf.append(rows)
-            self.ts.imu_since_frame.append(rows)
+            self.ts.imu_since_kf.append((self.frame_id, rows))
+            self.ts.imu_since_frame.append((self.frame_id, rows))
 
     def _after_sync_frame(self, feats, uv, t, feat_mp, n_in, mode, used_fb=False, fd=None):
         """The tail of a frame tracked off the steady state (relocalized, or
@@ -665,9 +730,11 @@ class SlamSystem:
 
     # ------------------------------------------------------------------
     def flush(self):
-        """Bring the recorded state up to date before it is read. The port is
-        synchronous, so only the trajectory rows are pending."""
-        self.traj.flush()
+        """Bring the recorded state up to date before it is read: every frame
+        in flight decided, the last event's host half, the Sim3 batch and its
+        verifications harvested (frameloop.flush; nothing is in flight in the
+        synchronous mode), the trajectory rows gathered."""
+        frameloop.flush(self)
 
     def global_refine(self):
         """One whole-map bundle adjustment over all active keyframes
@@ -682,8 +749,7 @@ class SlamSystem:
                 self.m, self.st, self.cfg, self.cam, self.ext, self.gw, self.noise,
                 force_all=True, prune=False)
         tracking_ctl.reseat_on_newest_keyframe(self.m, self.st, self.ts)
-        self.st.covis_row = None        # the caches of the map before the BA are stale
-        self.st.ref_tracked = None
+        frameloop.invalidate(self)     # the caches of the map before the BA are stale
 
     def get_trajectory(self):
         """[(t, P_wb (3,), R_wb (3, 3))] of every tracked frame, composed

@@ -4,11 +4,13 @@ Map-point projection search + pose optimization (TrackWithMotionModel /
 TrackLocalMap and the IMU variants, src/Tracking.cpp:224-412), fused into two
 search -> optimize rounds against the whole active map, and the per-frame VI
 program `frame_pipeline_vi` (extract, undistort, preintegrate, track, 40 px
-visual fallback, trajectory row). With a depth sensor (stereo / RGB-D) the
-frame's virtual right-image u (`feat_ur`, -1 where a feature has no depth)
-adds the u_right row to the pose solves (bf = fx * baseline) and the inlier
-gate takes CHI2_STEREO on those rows; the frame programs then take features
-extracted by the caller (`frame`), because the depth lookup needs them first.
+visual fallback, trajectory row) and its chained N-frame form
+`frame_pipeline_vi_pair` (the frame loop's unit after VI init). With a depth
+sensor (stereo / RGB-D) the frame's virtual right-image u (`feat_ur`, -1
+where a feature has no depth) adds the u_right row to the pose solves (bf =
+fx * baseline) and the inlier gate takes CHI2_STEREO on those rows; the
+frame programs then take features extracted by the caller (`frame`),
+because the depth lookup needs them first.
 
 Differences of form from the JAX package, none of semantics:
 * `.at[...].set(..., mode="drop")` scatters write into a buffer with one
@@ -341,6 +343,43 @@ def frame_pipeline_vi(m: MapState, img, rawp, cam: Camera, ext: factors.Extrinsi
         n_levels, iters, rtol, fb_min_inliers, frame, feat_ur, bf)
     return (feats, uv, ns_f, fmp_f, Hp_f, m.mp_found + fv, m.mp_visible + fv,
             traj, summary)
+
+
+def frame_pipeline_vi_pair(m: MapState, imgs, rawps, cam: Camera, ext: factors.Extrinsics,
+                           noise, ns_last, gw, prior_last: ba_vi.PriorFactor,
+                           prev_feat_mp, prev_angle, anchor_slot, dts, fresh_prior_fb,
+                           sigma_bg=2e-5, sigma_ba=5e-3, n_features=1024, n_levels=8,
+                           iters: int = 20, rtol: float = 0.0, has_prev: bool = True,
+                           fb_min_inliers=20):
+    """N consecutive VI frames, each chained on the one before it (NavState,
+    the marginal prior `PriorFactor(info=Hp)`, the previous frame's
+    associations and angles), against the same map: the frame loop's unit of
+    dispatch after VI init (the JAX package fuses them into one program; here
+    they are N `_vi_frame_body` calls back to back, and the gain is one
+    summary copy and one harvest per N frames).
+
+    imgs: N images; rawps: N (T_i, 7) IMU spans, each with its real rows;
+    dts: N frame periods. Returns (frames, H_prior_last, mp_found, mp_vis,
+    summary) with frames an N-tuple of (feats, uv, feat_mp, ns, traj) and
+    summary ONE (N, 4) tensor [n_in, bias_jump, used_fb, n_matches]; the
+    found / visible counters add every frame's matches."""
+    pfm = prev_feat_mp if has_prev else None
+    pan = prev_angle if has_prev else None
+    ns, prior = ns_last, prior_last
+    fv_tot = None
+    outs, sums = [], []
+    for img, rawp, dt_f in zip(imgs, rawps, dts):
+        feats, uv, ns, fmp, Hp, fv, traj, s = _vi_frame_body(
+            m, img, rawp, cam, ext, noise, ns, gw, prior, pfm, pan, anchor_slot, dt_f,
+            fresh_prior_fb, sigma_bg, sigma_ba, n_features, n_levels, iters, rtol,
+            fb_min_inliers)
+        prior = ba_vi.PriorFactor(cam=prior_last.cam, ns0=ns, info=Hp, valid=prior_last.valid)
+        pfm, pan = fmp, feats.angle
+        fv_tot = fv if fv_tot is None else fv_tot + fv
+        outs.append((feats, uv, fmp, ns, traj))
+        sums.append(s)
+    return (tuple(outs), prior.info, m.mp_found + fv_tot, m.mp_visible + fv_tot,
+            torch.stack(sums))
 
 
 def frame_pipeline_visual(m: MapState, img, cam: Camera, ext: factors.Extrinsics,

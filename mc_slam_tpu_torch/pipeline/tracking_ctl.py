@@ -1,8 +1,10 @@
 """Per-frame control of tracking (port of mc_slam_tpu/pipeline/tracking_ctl.py
 and of the per-frame decisions of frameloop.py, `_dispatch_frame_visual` /
-`_dispatch_frame_vi` followed by `_harvest_one`), in synchronous form: a frame
-is tracked, its summary is read, and its decisions (LOST, keyframe -> event
--> loop closing, VI-init attempt) are taken before the next frame. Also the
+`_dispatch_frame_vi` followed by `_harvest_one`), in the synchronous form
+that SlamSystem takes by default: a frame is tracked, its summary is read,
+and its decisions (LOST, keyframe -> event -> loop closing, VI-init attempt)
+are taken before the next frame (the deferred form is pipeline/frameloop.py,
+which uses the keyframe, relocalization and VI-init steps here). Also the
 paths off the steady state: the reference-keyframe fallback
 (`track_reference_kf`), relocalization (`relocalize`), and the 20 visual
 frames after a relocalization over which the biases are solved again
@@ -80,7 +82,9 @@ class TrackState:
     state): the last pose and the constant-velocity model before VI init,
     the last NavState, marginal prior and gravity after it, the last frame's
     associations and keypoint angles, the IMU rows since the last keyframe
-    and since the last frame, and the trajectory log."""
+    and since the last frame, each a list of (frame id, (T, 7) rows) so that
+    a keyframe cut at an older frame than the newest takes only its own
+    rows, and the trajectory log."""
     state: int                      # pipebase.OK or LOST
     P: torch.Tensor                 # (3,) last body position
     R: torch.Tensor                 # (3, 3)
@@ -129,6 +133,11 @@ class FrameOutcome(NamedTuple):
     mode: str = ""                  # "ref_kf", "reloc", "reloc_window" off the steady state
 
 
+def imu_rows(entries):
+    """The (T, 7) rows of a list of (frame id, rows), in order; None when empty."""
+    return torch.cat([r for _, r in entries]) if entries else None
+
+
 def start_tracking(m: MapState, st: mapping_ctl.MappingState, g_mag: float,
                    t: float, traj: TrajStore | None = None) -> TrackState:
     """The tracking state right after monocular initialization: at the newest
@@ -173,17 +182,24 @@ def need_new_kf(m: MapState, st: mapping_ctl.MappingState,
 
 def create_keyframe(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
                     ts: TrackState, feats, uv, t, fid: int, feat_mp, noise: IMUNoise,
-                    detector=None, ur=None):
-    """The tracked frame becomes a keyframe: its pose (its NavState after VI
-    init), THIS frame's tracked associations, the IMU rows since the last
-    keyframe, its u_right table (`ur`, a depth frame's). Returns (m, slot)."""
+                    detector=None, ur=None, pose=None, ns=None):
+    """Frame `fid` becomes a keyframe: its pose (its NavState after VI
+    init), ITS tracked associations, the IMU rows since the last keyframe up
+    to its own (rows of newer frames stay for the next keyframe), its u_right
+    table (`ur`, a depth frame's). pose / ns: the frame's (P, R) and NavState
+    when it is not the last one tracked (the frame loop's in-flight frames);
+    by default `ts`'s. Returns (m, slot)."""
     dev = m.mp_pos.device
-    ns = ts.ns if st.vi_inited else navstate_identity(device=dev)._replace(P=ts.P, R=ts.R)
-    rows = torch.cat(ts.imu_since_kf) if ts.imu_since_kf else None
+    P, R = pose if pose is not None else (ts.P, ts.R)
+    if not st.vi_inited:
+        ns = navstate_identity(device=dev)._replace(P=P, R=R)
+    elif ns is None:
+        ns = ts.ns
+    rows = imu_rows([(f, r) for f, r in ts.imu_since_kf if f <= fid])
     m, slot = mapping_ctl.insert_keyframe(m, st, cfg, ns, feats, uv, t, fid, rows, noise,
                                           feat_mp=feat_mp, traj=ts.traj, detector=detector,
                                           ur=ur)
-    ts.imu_since_kf = []
+    ts.imu_since_kf = [(f, r) for f, r in ts.imu_since_kf if f > fid]
     return m, slot
 
 
@@ -253,7 +269,7 @@ def vi_init_tail(m, st, cfg, ts, t, cam, ext, noise, vi_mark=None, vi_log=None):
 
 def track_visual(m: MapState, st: mapping_ctl.MappingState,
                  cfg: SlamConfig, ts: TrackState, img, t, fid: int,
-                 imu_rows, cam: Camera, ext: factors.Extrinsics, noise: IMUNoise,
+                 rows, cam: Camera, ext: factors.Extrinsics, noise: IMUNoise,
                  iters: int = 20, event_timer=None, vi_mark=None, vi_log=None,
                  allow_kf=True, event_kw=None, loop=None, generator=None, frame=None,
                  depth: FrameDepth | None = None):
@@ -266,8 +282,8 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
     `loop`) when `need_new_kf` says so, and (with cfg.use_imu) the VI-init
     attempt.
 
-    imu_rows: (T, 7) rows since the last frame (kept for the next keyframe's
-    preintegration), or None. allow_kf: False in localization mode (no
+    rows: (T, 7) IMU rows since the last frame (kept, tagged `fid`, for the
+    next keyframe's preintegration), or None. allow_kf: False in localization mode (no
     keyframe, no mapping). event_kw: keywords for
     `mapping_ctl.keyframe_event` (max_new, ba_Pw); vi_mark / vi_log: the stage
     marks and the diagnostic log of `viinit_ctl.maybe_vi_init`; loop: the
@@ -277,8 +293,8 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
     `FrameDepth`. Returns (m, FrameOutcome); a LOST outcome carries the
     frame's features for the relocalization attempt. `ts` and `st` are
     updated in place."""
-    if imu_rows is not None and imu_rows.shape[0]:
-        ts.imu_since_kf.append(imu_rows)
+    if rows is not None and rows.shape[0]:
+        ts.imu_since_kf.append((fid, rows))
     anchor = st.last_kf_slot
     ur, bf = _ur_bf(depth)
     (feats, uv, res, vel, mp_found, mp_vis, traj_row,
@@ -318,7 +334,7 @@ def track_visual(m: MapState, st: mapping_ctl.MappingState,
 
 
 def track_vi(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
-             ts: TrackState, img, t, fid: int, imu_rows, cam: Camera,
+             ts: TrackState, img, t, fid: int, rows, cam: Camera,
              ext: factors.Extrinsics, noise: IMUNoise, consts: FrameConstants,
              iters: int = 20, fb_min_inliers=20, event_timer=None, allow_kf=True,
              event_kw=None, loop=None, frame=None, depth: FrameDepth | None = None):
@@ -332,11 +348,12 @@ def track_vi(m: MapState, st: mapping_ctl.MappingState, cfg: SlamConfig,
     FrameOutcome); a LOST outcome carries the frame's features for the
     relocalization attempt."""
     dev = m.mp_pos.device
-    if imu_rows is not None and imu_rows.shape[0]:
-        ts.imu_since_kf.append(imu_rows)
-        ts.imu_since_frame.append(imu_rows)
-    rawp = (torch.cat(ts.imu_since_frame) if ts.imu_since_frame
-            else torch.zeros((0, 7), device=dev))
+    if rows is not None and rows.shape[0]:
+        ts.imu_since_kf.append((fid, rows))
+        ts.imu_since_frame.append((fid, rows))
+    rawp = imu_rows(ts.imu_since_frame)
+    if rawp is None:
+        rawp = torch.zeros((0, 7), device=dev)
     if ts.prior is None:
         ts.prior = ba_vi.PriorFactor(cam=consts.c0, ns0=ts.ns, valid=consts.c1,
                                      info=consts.prior_fresh)
@@ -514,8 +531,9 @@ def track_frame_reloc_window(m: MapState, st: mapping_ctl.MappingState, cfg: Sla
     observations and IMU rows join `ts.reloc_buf`; the `reloc_window`-th frame
     runs `recompute_bias_from_window` and closes the window.
     Returns (ok, inliers, used the retry); one host read, two with the retry."""
-    rows = (torch.cat(ts.imu_since_frame) if ts.imu_since_frame
-            else torch.zeros((0, 7), device=uv.device))
+    rows = imu_rows(ts.imu_since_frame)
+    if rows is None:
+        rows = torch.zeros((0, 7), device=uv.device)
     ts.imu_since_frame = []
     P_last, R_last = ts.P, ts.R
     ur, bf = _ur_bf(depth)

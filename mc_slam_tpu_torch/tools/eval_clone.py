@@ -38,6 +38,8 @@ the comment above that table still describes an older 3-lap, 8 x profile.)
 Where no PNG codec is installed (neither PIL
 nor imageio) the frames are rendered straight into the run and nothing is
 written. Needs a GPU unless `--device cpu` is given.
+MC_SLAM_LAG_MAX / MC_SLAM_PAIR select the frame loop (pipeline/system.py);
+the result's `lag_max` / `pair` say which mode ran.
 """
 from __future__ import annotations
 
@@ -431,7 +433,8 @@ def main(argv=None):
     streaks = [min([r for r in reloc_ev if r >= f], default=n_done) - f for f in lost_ev]
     traj_rows = len(slam.traj)
     result = {
-        "card": card, "torch": torch.__version__, "frames": n_done, "tracked_rows": traj_rows,
+        "card": card, "torch": torch.__version__, "lag_max": slam.LAG_MAX, "pair": slam.PAIR,
+        "frames": n_done, "tracked_rows": traj_rows,
         "lost_frames": n_lost, "lost": slam.state == LOST,
         "n_lost": n_lost, "n_relocs": len(reloc_ev),
         "max_lost_streak": int(max(streaks, default=0)),

@@ -13,6 +13,8 @@ of upload lookahead, reports the median / mean track time, writes the frame
 and keyframe trajectories (TUM and NavState formats) and, with ground truth,
 the Horn-aligned ATE. `tools/eval_clone.py` writes such a folder from the
 repo's own simulator. Needs a GPU unless `--device cpu` is given.
+MC_SLAM_LAG_MAX / MC_SLAM_PAIR select the frame loop (pipeline/system.py);
+the result's `lag_max` / `pair` say which mode ran.
 """
 from __future__ import annotations
 
@@ -108,7 +110,7 @@ def main(argv=None):
                              kf_entries)
     print(f"median track time: {np.median(times) * 1e3:.2f} ms  "
           f"mean: {np.mean(times) * 1e3:.2f} ms")
-    result = {"frames": n, "keyframes": slam.n_kf,
+    result = {"frames": n, "keyframes": slam.n_kf, "lag_max": slam.LAG_MAX, "pair": slam.PAIR,
               "median_track_ms": float(np.median(times) * 1e3),
               "fps": float(1.0 / np.median(times))}
     if args.gt:

@@ -9,6 +9,8 @@ counterpart of examples/run_mono.py.
 FrameTrajectory_TUM.txt (and FrameTrajectory_KITTI.txt for kitti), prints the
 median track time and, with --gt, the ATE RMSE. Needs a GPU unless `--device
 cpu` is given.
+MC_SLAM_LAG_MAX / MC_SLAM_PAIR select the frame loop (pipeline/system.py);
+the result's `lag_max` / `pair` say which mode ran.
 """
 from __future__ import annotations
 
@@ -86,7 +88,7 @@ def main(argv=None):
     if args.kind == "kitti":
         trajectory.save_kitti(os.path.join(args.out_dir, "FrameTrajectory_KITTI.txt"), traj)
     trajectory.save_tum(os.path.join(args.out_dir, "FrameTrajectory_TUM.txt"), traj)
-    result = {"frames": n, "keyframes": slam.n_kf,
+    result = {"frames": n, "keyframes": slam.n_kf, "lag_max": slam.LAG_MAX, "pair": slam.PAIR,
               "median_track_ms": float(np.median(times) * 1e3)}
     if args.gt:
         gt = np.loadtxt(args.gt, comments="#")

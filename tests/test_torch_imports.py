@@ -156,6 +156,26 @@ def test_multiseq_and_multihost_modules_are_covered(mod):
     assert proc.returncode == 0, proc.stderr
 
 
+FRAMELOOP_MODULES = ("pipeline.frameloop", "pipeline.pipebase", "pipeline.tracking",
+                     "pipeline.loopctl", "io.stream")
+
+
+@pytest.mark.parametrize("mod", FRAMELOOP_MODULES)
+def test_frame_loop_modules_are_covered(mod):
+    """The asynchronous frame loop and the modules it changed are among those
+    the import test walks, name neither jax nor the JAX package in an import
+    line, and import by themselves in a fresh interpreter without pulling
+    either in."""
+    assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
+    src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
+    imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
+    assert imports and not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
+                               for l in imports)
+    proc = _run(f"import sys, mc_slam_tpu_torch.{mod}\n"
+                "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_graft_entry_torch_imports_no_jax():
     """__graft_entry_torch__.py imports, and runs its entry point, without
     jax or the JAX package."""
