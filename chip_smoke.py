@@ -2,8 +2,9 @@
 """Drive the port's Mono+IMU bootstrap, tracking, mapping, relocalization,
 loop closing, the mesh-sharded whole-map solvers, checkpoint and resume,
 the asynchronous frame loop against the synchronous mode, depth sensors
-(RGB-D, stereo + IMU), the batched multi-sequence step and the multi-host
-Schur solve on one NVIDIA GPU.
+(RGB-D, stereo + IMU), capacity eviction of keyframes and points, the
+batched multi-sequence step and the multi-host Schur solve on one NVIDIA
+GPU.
 
     python3 chip_smoke.py
 
@@ -146,6 +147,18 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     alignment scale within 0.2 of 1. Both paths print ms per frame (median,
     p90), ms per event, the stereo extraction + matching ms, launches and
     flagged syncs;
+    phase "evict": a new `SlamSystem` at examples/eval_clone.py's small
+    profile's widths (752x480, 512 features, 3 levels, window 8) with its
+    tables cut to 10 keyframes and 768 points (`EVICT`), from raw clone
+    frames with VI init at 5 s and 60 VI frames after it, under
+    `eviction_watch` (the allocator's evictions and the tables before and
+    after each event's landmark maintenance). Fails unless at least 2
+    keyframes are evicted at capacity, 1 of them after VI init (its IMU
+    rows spliced into its successor), at least one point-eviction pass
+    deactivates points, the keyframe table never holds more than its size,
+    no frame is lost, every BA cost curve is non-increasing with no
+    landmark overflow, the post-init ATE is under path 3's 8 cm, and the
+    kernel equals its twin on the phase's real searches (N = 512);
 15. phase "multiseq" (BASELINE.json config #4, parallel/multiseq.py): 11
     windows of the clone (starting at frames 0, 10, ..., 100), each with its
     own map seeded as path 1's over its own frames, tracked as ONE batch:
@@ -209,6 +222,7 @@ from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
 from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix, empty_map,
                                                  observation_counts)
 from mc_slam_tpu_torch.solver import ba_vi, factors
+from mc_slam_tpu_torch.tools.eval_clone import PROFILE_CONFIG, eviction_watch
 
 # the reference's EuRoC Tbc (config/euroc.yaml:40-44)
 TBC = np.array([
@@ -1700,19 +1714,7 @@ def check_bootstrap(res, seq: Sequence, p: Profile):
     """Path 3's checks against ground truth, by the gates of the JAX
     package's own ~5 s initialization test (tests/test_e2e_vi.py); raises on
     the first that fails. Returns the measured values."""
-    bas = [("two-view BA", res["init"]["ba"])]
-    bas += [(f"event at frame {e['frame']}", e) for e in res["events"]]
-    for a in res["attempts"]:
-        bas.append((f"whole-map visual BA at frame {a['frame']}", a["ba_visual"]))
-        if "ba_vi" in a:
-            bas.append((f"whole-map VI BA at frame {a['frame']}", a["ba_vi"]))
-    for name, b in bas:
-        if not (np.isfinite(b["cost0"]) and np.isfinite(b["cost"])) or b["cost"] > b["cost0"]:
-            raise AssertionError(f"{name}: BA cost {b['cost0']} -> {b['cost']}")
-    for e in res["events"]:
-        if e["overflow"] != 0:
-            raise AssertionError(f"event at frame {e['frame']}: {e['overflow']} "
-                                 f"landmarks past Pw were dropped from the window BA")
+    check_ba_curves(res, whole_curves=False)
     bg_err = np.abs(res["bg0"] - TRUE_BG)
     if not (bg_err <= np.asarray(BG_TOL_BOOT)).all():
         raise AssertionError(f"gyro bias of keyframe 0 {res['bg0']} (true {TRUE_BG})")
@@ -1736,6 +1738,91 @@ def check_bootstrap(res, seq: Sequence, p: Profile):
     return dict(bg_err=bg_err.tolist(), ate_post_m=stats["rmse"], scale_post=stats["scale"],
                 n_post=stats["n"], ate_all_m=full["rmse"], scale_all=full["scale"],
                 gravity_cos=cos)
+
+
+# ---------------------------------------------------------------------------
+# The phase "evict": capacity eviction of keyframes and points
+# ---------------------------------------------------------------------------
+
+# examples/eval_clone.py's "small" profile (752x480, 512 features, 3 levels,
+# window 8) with its tables cut so that both fill within 160 frames (its own
+# 64 / 4096 fill only over a whole run), VI init at 5 s. A trial of cuts on
+# the card (10 or 11 keyframes with 1024 points, 12 with 1536) evicted 3-5
+# keyframes but no point: the orphan sweep above 90 % holds those tables
+# under the 95 % at which point eviction starts; 768 points reach it (at
+# frames 96, 101 and 120). 60 VI frames keep the phase near 2 minutes
+EVICT = dataclasses.replace(EUROC, n_feat=512, n_levels=3, local_window=8, max_kf=10,
+                            max_mp=768, vi_init_time=5.0, boot_max_frame=160,
+                            n_vi_frames=60)
+EVICT_MIN_KF = 2            # keyframes evicted at capacity through the allocator, at least
+EVICT_MIN_KF_VI = 1         # ... of them after VI init (the IMU chain spliced)
+EVICT_MIN_MP = 1            # point-eviction passes that deactivated a point, at least
+
+
+def check_ba_curves(res, whole_curves=True):
+    """Every BA of a bootstrap run (the two-view BA, each event's window BA,
+    each whole-map BA of a VI-init attempt) ends at a finite cost no higher
+    than its first, with whole_curves every point of an event's cost curve
+    too, and no event dropped a landmark past Pw (F2). Raises on the first
+    that fails."""
+    bas = [("two-view BA", res["init"]["ba"])]
+    bas += [(f"event at frame {e['frame']}", e) for e in res["events"]]
+    for a in res["attempts"]:
+        bas.append((f"whole-map visual BA at frame {a['frame']}", a["ba_visual"]))
+        if "ba_vi" in a:
+            bas.append((f"whole-map VI BA at frame {a['frame']}", a["ba_vi"]))
+    for name, b in bas:
+        if not (np.isfinite(b["cost0"]) and np.isfinite(b["cost"])) or b["cost"] > b["cost0"]:
+            raise AssertionError(f"{name}: BA cost {b['cost0']} -> {b['cost']}")
+        c = np.asarray(b.get("costs", []) if whole_curves else [], np.float64)
+        if c.size and (not np.isfinite(c).all() or np.any(np.diff(c) > 0)):
+            raise AssertionError(f"{name}: BA cost curve rises {c.tolist()}")
+    for e in res["events"]:
+        if e["overflow"] != 0:
+            raise AssertionError(f"event at frame {e['frame']}: {e['overflow']} "
+                                 f"landmarks past Pw were dropped from the window BA")
+
+
+def check_evict(res, watch, seq: Sequence, p: Profile, min_kf=EVICT_MIN_KF,
+                min_kf_vi=EVICT_MIN_KF_VI, min_mp=EVICT_MIN_MP):
+    """The phase "evict"'s checks on a `run_bootstrap` result and the
+    `eviction_watch` record; raises on the first that fails. Returns the
+    measured values."""
+    slam = res["slam"]
+    kf, mp = watch["kf"], watch["mp"]
+    n_kf_vi = sum(e["vi"] for e in kf)
+    passes = [e for e in mp if e["evicted"] > 0]
+    if len(kf) < min_kf or n_kf_vi < min_kf_vi:
+        raise AssertionError(f"{len(kf)} keyframes evicted at capacity ({n_kf_vi} after VI "
+                             f"init); at least {min_kf} ({min_kf_vi}) wanted")
+    if len(passes) < min_mp:
+        raise AssertionError(f"{len(passes)} point-eviction passes deactivated a point; at "
+                             f"least {min_mp} wanted")
+    most = max([e["n_active"] for e in kf] + [len(slam.kf_slots)])
+    n_act = int(slam.m.kf_active.sum())
+    if most > p.max_kf or n_act != len(slam.kf_slots):
+        raise AssertionError(f"keyframe table over capacity: {most} active of {p.max_kf} "
+                             f"({n_act} flagged active, {len(slam.kf_slots)} listed)")
+    if slam.n_lost_frames:
+        raise AssertionError(f"{slam.n_lost_frames} frames lost")
+    check_ba_curves(res)
+    t_est = np.asarray([x[0] for x in res["traj"]])
+    P_est = np.asarray([x[1] for x in res["traj"]])
+    post = t_est > seq.times[res["i_accept"]] - 1e-6
+    stats = ate_rmse(t_est[post], P_est[post], seq.times, seq.P, with_scale=True)
+    if not stats["rmse"] < ATE_LIMIT_BOOT:
+        raise AssertionError(f"post-init ATE {stats}")
+    return dict(kf_evicted=len(kf), kf_evicted_after_vi=n_kf_vi, mp_passes=len(passes),
+                mp_evicted=sum(e["evicted"] for e in passes), most_active_kf=most,
+                ate_post_m=stats["rmse"], scale_post=stats["scale"], n_post=stats["n"])
+
+
+def run_evict(seq: Sequence, p: Profile, cam, device, recorder=None):
+    """The phase "evict"'s run: `run_bootstrap` at the sizes of `p` under
+    `eviction_watch`. Returns (run_bootstrap's dict, the watch record)."""
+    with eviction_watch() as watch:
+        res = run_bootstrap(seq, p, cam, device, recorder=recorder)
+    return res, watch
 
 
 # ---------------------------------------------------------------------------
@@ -1926,6 +2013,76 @@ def check_depth(res, seq: Sequence, stereo: bool):
     return dict(ate_m=stats["rmse"], scale=stats["scale"], n=stats["n"],
                 n_window_ba=len(windows), n_xyz_vi_window_ba=len(xyz_vi),
                 min_ur_rows=min(c["n_ur"] for c in windows))
+
+
+def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
+    """The phase "evict" on the card: a new `SlamSystem` at `p` (`run_evict`)
+    from raw clone frames, with its report lines and `check_evict` (skipped
+    with check=False, for trying other cuts). Returns (detail dict, kernel
+    launches of the run, max kernel-vs-twin error on the recorded searches)."""
+    full = PROFILE_CONFIG["small"]
+    _phase("evict", f"examples/eval_clone.py's small profile ({p.width}x{p.height}, "
+                    f"{p.n_feat} features, {p.n_levels} levels, window {p.local_window}) with "
+                    f"its tables cut: max_kf {full['max_kf']} -> {p.max_kf}, max_mp "
+                    f"{full['max_mp']} -> {p.max_mp}; VI init at {p.vi_init_time:g} s, "
+                    f"{p.n_vi_frames} VI frames after it")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rec = SearchRecorder(keep_frames={120, 140, 150}, timed=False)
+    hamming_top2_windowed.launches = 0
+    t0 = time.time()
+    res, watch = run_evict(seq, p, cam, dev, recorder=rec)
+    launches = hamming_top2_windowed.launches
+    wall = time.time() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    slam = res["slam"]
+    for e in watch["kf"]:
+        _phase("evict", f"keyframe slot {e['slot']} (frame {e['kf_frame']}) evicted at capacity "
+                        f"{'after' if e['vi'] else 'before'} VI init; {e['n_active']} of "
+                        f"{e['K']} active after the new keyframe")
+    for e in watch["mp"]:
+        if e["evicted"]:
+            _phase("evict", f"event at frame {e['kf_frame']}: point eviction {e['before']} -> "
+                            f"{e['after']} active of {e['P']} ({e['evicted']} evicted)")
+    fr = res["frames"]
+    vi_ms = [f["ms"] for f in fr if f["vi"] and f["plain"]]
+    vis_ms = [f["ms"] for f in fr if not f["vi"] and f["plain"]]
+    ev_ms = [e["pre_ms"] + e["ba_ms"] + e["post_ms"] + e["cull_ms"] for e in res["events"]]
+    n_pass = sum(e["evicted"] > 0 for e in watch["mp"])
+    _phase("evict", f"{len(fr)} frames through SlamSystem.track in {wall:.1f} s: VI init "
+                    f"accepted at frame {res['i_accept']}, {slam.n_kf} keyframes inserted, "
+                    f"{res['n_culled_kf']} culled, {len(watch['kf'])} evicted at capacity "
+                    f"({sum(e['vi'] for e in watch['kf'])} after VI init), {len(slam.kf_slots)} "
+                    f"active; {n_pass} of {len(watch['mp'])} event maintenances evicted points; "
+                    f"lost frames {slam.n_lost_frames}; launches {launches}; ms/frame visual "
+                    f"median {np.median(vis_ms):.1f}, VI median "
+                    f"{np.median(vi_ms) if vi_ms else float('nan'):.1f}; ms/event median "
+                    f"{np.median(ev_ms):.1f}; peak device memory {peak_mb:.0f} MiB")
+    detail = {"profile": {k: getattr(p, k) for k in ("n_feat", "n_levels", "local_window",
+                                                     "max_kf", "max_mp", "vi_init_time",
+                                                     "n_vi_frames")},
+              "frames": len(fr), "launches": launches, "accepted_at_frame": res["i_accept"],
+              "kf_evictions": watch["kf"], "mp_evictions": watch["mp"],
+              "keyframes_inserted": slam.n_kf, "keyframes_culled": res["n_culled_kf"],
+              "lost_frames": slam.n_lost_frames, "frame_ms_vi_median":
+              float(np.median(vi_ms)) if vi_ms else None, "event_ms_median":
+              float(np.median(ev_ms)), "peak_device_MiB": peak_mb, "seconds": wall}
+    err = 0
+    if check:
+        measured = check_evict(res, watch, seq, p)
+        detail["measured"] = measured
+        err, n_real = _real_search_check(rec)
+        _phase("evict", f"checks passed: {measured['kf_evicted']} keyframes evicted (>= "
+                        f"{EVICT_MIN_KF}, {measured['kf_evicted_after_vi']} after VI init, >= "
+                        f"{EVICT_MIN_KF_VI}), {measured['mp_passes']} point-eviction passes "
+                        f"({measured['mp_evicted']} points; >= {EVICT_MIN_MP}), at most "
+                        f"{measured['most_active_kf']} of {p.max_kf} keyframes active, 0 lost, "
+                        f"BA curves non-increasing with overflow 0; post-init ATE "
+                        f"{measured['ate_post_m'] * 1e3:.2f} mm over {measured['n_post']} frames "
+                        f"(< {ATE_LIMIT_BOOT * 1e3:.0f}), alignment scale "
+                        f"{measured['scale_post']:.4f}; kernel == twin on the {n_real} real "
+                        f"searches (N = {p.n_feat})")
+    return detail, launches, err
 
 
 def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
@@ -2927,6 +3084,10 @@ def main():
     detail7, launches_stereo, err = depth_phase("path7", seq_boot, p, cam, dev, right=right)
     max_err = max(max_err, err)
 
+    # ---- phase "evict": capacity eviction of keyframes and points ----
+    detail_ev, launches_evict, err = evict_phase(seq_boot, cam, dev)
+    max_err = max(max_err, err)
+
     # ---- phase "multiseq": 11 windows as one batched step ----
     detail_ms, rec_ms, err_ms = run_multiseq_phase(seq_boot, p, cam, ext, dev, kernel_ms,
                                                    bounds)
@@ -2945,12 +3106,14 @@ def main():
                        f"{launches_map} + {launches_boot} + {launches_sys} + {launches_rev} + "
                        f"{launches_ckpt} + {launches_rgbd} + {launches_stereo} = "
                        f"{launches_paths}; phase \"async\": {launches_async[0]} + "
-                       f"{launches_async[1]}; phase \"multiseq\": {rec_ms['launches']}")
-    launches_paths += sum(launches_async)
+                       f"{launches_async[1]}; phase \"evict\" (N = {EVICT.n_feat}): "
+                       f"{launches_evict}; phase \"multiseq\": {rec_ms['launches']}")
+    launches_paths += sum(launches_async) + launches_evict
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "shape": "M=16384 x N=1024 (paths 1-7, phases checkpoint and async)",
+        "shape": "M=16384 x N=1024 (paths 1-7, phases checkpoint and async); "
+                 f"M={EVICT.max_mp} x N={EVICT.n_feat} (phase evict)",
         "launches": launches_paths,
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
@@ -2981,7 +3144,7 @@ def main():
                         "peak_device_MiB": peak_mb},
               "path3": detail3, "path4": detail4, "path5": detail5, "path6": detail6,
               "path7": detail7, "mesh": {"gba": mg, "posegraph": mp}, "checkpoint": ck,
-              "async": detail_as,
+              "async": detail_as, "evict": detail_ev,
               "multiseq": detail_ms, "multihost": detail_mh,
               "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),

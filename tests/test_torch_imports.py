@@ -176,6 +176,27 @@ def test_frame_loop_modules_are_covered(mod):
     assert proc.returncode == 0, proc.stderr
 
 
+EVAL_TOOL_MODULES = ("tools.eval_clone", "tools.eval_vocab", "tools.make_euroc_clone",
+                     "tools.make_readme_table")
+
+
+@pytest.mark.parametrize("mod", EVAL_TOOL_MODULES)
+def test_evaluation_tools_are_covered(mod):
+    """The evaluation tools (the profiles, the drift injection and the gate
+    of eval_clone, eval_vocab, the clone writer, the robustness table) are
+    among the modules the import test walks, name neither jax nor the JAX
+    package in an import line, and import by themselves in a fresh
+    interpreter without pulling either in."""
+    assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
+    src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
+    imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
+    assert imports and not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
+                               for l in imports)
+    proc = _run(f"import sys, mc_slam_tpu_torch.{mod}\n"
+                "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_graft_entry_torch_imports_no_jax():
     """__graft_entry_torch__.py imports, and runs its entry point, without
     jax or the JAX package."""
@@ -196,7 +217,7 @@ def test_vocabulary_loads_without_the_jax_package():
 
 
 @pytest.mark.parametrize("tool", ["bench_hamming", "profile_event", "eval_clone",
-                                  "run_multihost_ba"])
+                                  "run_multihost_ba", "eval_vocab"])
 def test_measurement_tools_refuse_without_gpu(tool):
     proc = subprocess.run([sys.executable, "-m", f"mc_slam_tpu_torch.tools.{tool}"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
