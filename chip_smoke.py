@@ -114,7 +114,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     on any difference, a lost frame, no kernel launch, or an ATE over those
     frames of 5 cm or more; prints save / load ms and the bytes written;
     phase "async": those files loaded into two fresh systems that track the
-    30 clone frames after the replayed stretch, A synchronous (LAG_MAX =
+    20 clone frames after the replayed stretch, A synchronous (LAG_MAX =
     PAIR = 1) and B the frame loop at the JAX package's defaults (LAG_MAX
     12, PAIR 2). Prints for each ms per `track` (median, p90), the wall time
     with the final `flush()` and frames/s, matcher launches, flagged syncs
@@ -123,7 +123,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     at the very end of the script (the profiler slows what runs after it)
     the device-busy share of 10 more frames of each. Fails on a lost frame,
     an ATE of 5 cm or more, B without a trajectory row per frame or with an
-    entry pending after `flush()`, fewer than 15 pairs or no event harvested
+    entry pending after `flush()`, fewer than 10 pairs or no event harvested
     deferred, B more than 2 cm from A on a frame, or kernel != twin on the
     searches of B's first pair;
 13. path 6, "euroc-rgbd": a new `SlamSystem` (IMU off, cull_min_obs 2, loop
@@ -183,7 +183,20 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     JAX demo's problem and on one at the map's scale (132 keyframes, 16384
     landmarks). Fails unless every rank's camera update is bit-equal to rank
     0's and within 5e-4 of the single-process Schur solve; prints ms per
-    solve. Two ranks on two cards (NCCL across cards) need a second card.
+    solve. Two ranks on two cards (NCCL across cards) need a second card;
+17. phase "bench" (the JAX repo's bench.py, `tools/bench.py`): its workloads
+    1-5 in this process at full size, 3 timed calls each (the tool times
+    20): the fused frame step (752x480 noise, 1024 features, 8 levels,
+    `track_frame_visual` with 10 LM iterations against a 16384-point random
+    map), the extraction alone, the XYZ and inverse-depth window VI BAs (20
+    keyframes, 2048 points, 10 iterations), 8 sequences in one batched step,
+    the plain 1024 x 16384 Hamming matrix and the kernel on the frame step's
+    first search; then `tools/bench_scaling.py`'s part A (the chunked
+    whole-map VI BA at 128 keyframes, 12288 points, 96 chunks) at 2
+    iterations. Fails unless the kernel equals its twin on the frame step's
+    and the batched step's real searches, the kernel launched 2 times a
+    frame step and 2 times a batched step, and every BA cost curve is finite
+    and non-increasing; prints each workload's time and the launches a frame.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -1512,12 +1525,12 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
                 keyframes_after=new.n_kf - slam.n_kf)
 
 
-ASYNC_FRAMES = 30           # clone frames each mode of the phase "async" tracks (40 took the
-                            # script past 900 s on one host)
+ASYNC_FRAMES = 20           # clone frames each mode of the phase "async" tracks (40 took the
+                            # script past 900 s on one host, 30 to 965 s)
 ASYNC_PROFILE_FRAMES = 10   # the window after them that torch.profiler traces
 ASYNC_LAG_MAX, ASYNC_PAIR = 12, 2   # mode B: the JAX package's defaults (mode A: 1, 1)
 ASYNC_POS_TOL = 0.02        # m, B's positions against A's, frame by frame
-ASYNC_MIN_PAIRS = 15        # pairs B must dispatch
+ASYNC_MIN_PAIRS = ASYNC_FRAMES // 2   # pairs B must dispatch: every frame in a pair
 
 
 def device_busy_ms(fn):
@@ -2801,6 +2814,83 @@ def run_multihost_phase():
     return out
 
 
+BENCH_CALLS = 3             # timed calls a workload in the phase "bench" (tools/bench.py: 20)
+BENCH_GBA_ITERS = 2         # part A's LM iterations in the phase "bench" (bench_scaling: 8)
+
+
+def _check_curve(name, costs):
+    c = np.asarray(costs, np.float64)
+    if not c.size or not np.isfinite(c).all() or np.any(np.diff(c) > 0):
+        raise AssertionError(f"{name}: BA cost curve not finite and non-increasing {c.tolist()}")
+
+
+def bench_phase(dev):
+    """The phase "bench" (see the module docstring). Returns (detail dict,
+    launches of the frame steps, launches of the batched steps, max
+    kernel-vs-twin error on their real searches)."""
+    from mc_slam_tpu_torch.tools import bench, bench_scaling
+    t0 = time.time()
+    sz = bench.FULL
+    n = BENCH_CALLS
+    sub, det = bench.run_workloads(sz, dev, n_frame=n, n_ex=n, n_ba=n, n_batched=n, n_hm=n,
+                                   profile=False)
+    launches = det["launches"]
+    _phase("bench", f"frame step ({sz['W']}x{sz['H']}, {sz['n_feat']} features, "
+                    f"{sz['n_levels']} levels, {sz['n_mp']}-point map): "
+                    f"{sub['frame_tracking_ms']:.2f} ms ({sub['frame_tracking_fps']:.2f} "
+                    f"frames/s); hamming_top2_windowed {launches['frame_step']} in {n + 2} steps")
+    _phase("bench", f"extraction {sub['extraction_ms']:.2f} ms; window VI BA "
+                    f"{sub['vi_ba_20kf_ms']:.2f} ms, IDP {sub['vi_ba_idp_20kf_ms']:.2f} ms "
+                    f"({sz['ba_kf']} keyframes, {sz['ba_pts']} points, {bench.BA_ITERS} "
+                    f"iterations)")
+    _phase("bench", f"{sz['batch']} sequences in one batched step: "
+                    f"{sub['batched8_fps_aggregate']:.2f} frames/s aggregate, "
+                    f"hamming_top2_windowed {launches['batched_step']} in {n + 2} steps; Hamming "
+                    f"{sz['n_feat']}x{sz['n_mp']} {sub['hamming_gpairs_s']:.1f} Gpairs/s; the "
+                    f"kernel on the first search {sub['kernel_gpairs_s']:.1f} Gpairs/s gated")
+    _phase("bench", f"speed of light: {json.dumps(sub['speed_of_light'])}")
+    if launches["frame_step"] != 2 * (n + 2) or launches["batched_step"] != 2 * (n + 2):
+        raise AssertionError(f"kernel launches {launches}")
+    _check_curve("window VI BA", det["vi_ba_costs"])
+    _check_curve("IDP window BA", det["vi_ba_idp_costs"])
+    # the kernel on the real searches of one frame step and one batched step
+    img_np, pts, words = bench.synthetic_inputs(sz)
+    img = torch.from_numpy(img_np).to(dev)
+    m = bench.synthetic_map(sz, pts, words, dev)
+    cam, ext = tcam.euroc_camera(device=dev), factors.identity_extrinsics(device=dev)
+    from mc_slam_tpu_torch.parallel import multiseq
+    B = sz["batch"]
+    step = bench.make_frame_step(cam, ext, sz)
+    mstep = multiseq.make_batched_step(cam, ext, n_features=sz["n_feat"],
+                                       n_levels=sz["n_levels"])
+    rec = SearchRecorder(keep_frames=1, timed=False)
+    orig = match_cuda.hamming_top2_windowed
+    match_cuda.hamming_top2_windowed = rec
+    try:
+        step(img, m, torch.zeros(3, device=dev), torch.eye(3, device=dev))
+        mstep(multiseq.stack_maps([m] * B), img[None].expand(B, -1, -1).contiguous(),
+              torch.zeros(B, 3, device=dev), torch.eye(3, device=dev).expand(B, 3, 3))
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+    err, n_real = _real_search_check(rec)
+    if n_real != 4:
+        raise AssertionError(f"{n_real} searches recorded (2 single, 2 batched)")
+    del rec
+    _phase("bench", f"kernel == twin on the {n_real} real searches of a frame step and a "
+                    f"batched step of {B}")
+    # tools/bench_scaling.py's part A
+    prob, meta = bench_scaling.synthetic_problem(**bench_scaling.SYNTH, device=dev)
+    a = bench_scaling.part_a(prob, meta, BENCH_GBA_ITERS, dev, n=1, warm=0, profile=False)
+    _check_curve("chunked whole-map VI BA", a["costs"])
+    _phase("bench", f"chunked whole-map VI BA ({meta['n_kf']} keyframes, {meta['n_pts']} "
+                    f"points, {meta['n_obs']} observations, {meta['chunks']} chunks): "
+                    f"{a['measured_iter_ms_1dev']:.1f} ms an iteration (one cold call), peak "
+                    f"{a['peak_device_MiB']:.0f} MiB; cost {a['costs'][0]:.1f} -> "
+                    f"{a['costs'][-1]:.1f} ({time.time() - t0:.1f} s)")
+    detail = {"sub": sub, "launches": launches, "part_a": a}
+    return detail, launches["frame_step"], launches["batched_step"], err
+
+
 def _async_line(name, r):
     pl = r["pulls"]
     drain = r["ev_chain_drain_ms"]
@@ -3095,6 +3185,10 @@ def main():
     # ---- phase "multihost": the process-group Schur solve ----
     detail_mh = run_multihost_phase()
 
+    # ---- phase "bench": tools/bench.py's workloads 1-5 and bench_scaling's part A ----
+    detail_bench, launches_bench, launches_bench_b, err_bench = bench_phase(dev)
+    max_err = max(max_err, err_bench)
+
     # ---- the phase "async"'s device-busy windows, last: the profiler slows what follows ----
     async_profile_phase(async_modes, seq_boot, detail_as)
     del async_modes
@@ -3107,20 +3201,24 @@ def main():
                        f"{launches_ckpt} + {launches_rgbd} + {launches_stereo} = "
                        f"{launches_paths}; phase \"async\": {launches_async[0]} + "
                        f"{launches_async[1]}; phase \"evict\" (N = {EVICT.n_feat}): "
-                       f"{launches_evict}; phase \"multiseq\": {rec_ms['launches']}")
-    launches_paths += sum(launches_async) + launches_evict
+                       f"{launches_evict}; phase \"multiseq\": {rec_ms['launches']}; phase "
+                       f"\"bench\": {launches_bench} (frame steps) + {launches_bench_b} "
+                       f"(batched steps)")
+    launches_paths += sum(launches_async) + launches_evict + launches_bench
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "shape": "M=16384 x N=1024 (paths 1-7, phases checkpoint and async); "
+        "shape": "M=16384 x N=1024 (paths 1-7, phases checkpoint, async and bench); "
                  f"M={EVICT.max_mp} x N={EVICT.n_feat} (phase evict)",
         "launches": launches_paths,
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
         "name": "hamming_top2_windowed (batched)", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "shape": f"B={len(MULTISEQ_STARTS)} x M=16384 x N=1024 (phase multiseq)",
-        "launches": rec_ms["launches"], "max_abs_err": err_ms, "ms": rec_ms["ms"],
+        "shape": f"B={len(MULTISEQ_STARTS)} x M=16384 x N=1024 (phase multiseq); B=8 (phase "
+                 "bench)",
+        "launches": rec_ms["launches"] + launches_bench_b,
+        "max_abs_err": max(err_ms, err_bench), "ms": rec_ms["ms"],
         "plain_ms": rec_ms["plain_ms"], "bound_ms": rec_ms["bound_ms"],
         "bound_by": rec_ms["bound_by"], "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
@@ -3145,7 +3243,7 @@ def main():
               "path3": detail3, "path4": detail4, "path5": detail5, "path6": detail6,
               "path7": detail7, "mesh": {"gba": mg, "posegraph": mp}, "checkpoint": ck,
               "async": detail_as, "evict": detail_ev,
-              "multiseq": detail_ms, "multihost": detail_mh,
+              "multiseq": detail_ms, "multihost": detail_mh, "bench": detail_bench,
               "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
           flush=True)

@@ -113,6 +113,12 @@ PROFILE_CONFIG = {
     "small": dict(max_kf=64, max_mp=4096, n_feat=512, n_levels=3, local_window=8),
 }
 PROFILES = ("euroc", "mid", "small", "loops", "hard")
+# The JAX script reads the clone through the repo's native loader, which
+# gives the stream's first IMU sample a dt of 5 ms (native/euroc_loader.cc:
+# 180-181) where io.euroc gives it 0: the rows between the first two frames
+# would span 45 ms of their 50, and the IMU edge between the two-view
+# keyframes (often those two frames) would disagree with their poses.
+NATIVE_FIRST_DT = 0.005
 # the StageTimer stages that no other stage encloses; the rest of the wall
 # time (host glue, the event stages of a frame tracked off the steady state,
 # a deferred event harvest of the frame loop) is reported as unattributed
@@ -444,16 +450,30 @@ def write_clone(args, n_frames):
     return writer.finish()
 
 
+def imu_slices(seq):
+    """io.euroc's (t, image path, IMU rows) per frame with the native
+    loader's dt for the stream's first IMU sample, the IMU rows the JAX
+    script's run reads."""
+    from mc_slam_tpu_torch.io import euroc
+    first = True
+    for t, path, rows in euroc.slice_imu_per_frame(seq):
+        if first and len(rows):
+            rows = rows.copy()
+            rows[0, 6] = NATIVE_FIRST_DT
+            first = False
+        yield t, path, rows
+
+
 def frames_from_disk(mav0, max_frames):
     """(frames iterator of (t, img uint8, imu rows), t_gt, P_gt) read with
-    io.euroc from an ASL folder."""
+    io.euroc from an ASL folder (`imu_slices`)."""
     from mc_slam_tpu_torch.io import euroc
     seq = euroc.load_sequence(mav0)
     gt = np.loadtxt(os.path.join(mav0, "state_groundtruth_estimate0", "data.csv"),
                     delimiter=",", comments="#")
 
     def frames():
-        for n, (t, path, rows) in enumerate(euroc.slice_imu_per_frame(seq)):
+        for n, (t, path, rows) in enumerate(imu_slices(seq)):
             if max_frames and n >= max_frames:
                 return
             yield t, euroc.load_gray_image(path).astype(np.uint8), rows
@@ -469,7 +489,7 @@ def frames_in_memory(args, n_frames):
     imu = np.concatenate([(T_OFF + np.arange(len(rows)) / 200.0)[:, None], rows[:, :6]], 1)
     times = np.asarray([it[0] for it in items])
     seq = euroc.EurocSequence(image_times=times, image_paths=list(range(len(items))), imu=imu)
-    frames = ((t, items[k][1], r) for t, k, r in euroc.slice_imu_per_frame(seq))
+    frames = ((t, items[k][1], r) for t, k, r in imu_slices(seq))
     return frames, times, np.asarray([it[2] for it in items])
 
 
@@ -491,7 +511,7 @@ def frames_span(args, n_all, lo, hi, workers=4):
     def frames():
         imgs = render_clone(args, n_all, lo=lo, hi=hi, workers=workers)
         try:
-            for t, k, r in euroc.slice_imu_per_frame(seq):
+            for t, k, r in imu_slices(seq):
                 if k >= hi:
                     return
                 if k >= lo:

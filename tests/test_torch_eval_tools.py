@@ -53,6 +53,31 @@ def test_clone_writer_matches_jax(tmp_path, monkeypatch):
         assert diff.max() <= 1 and (diff > 0).mean() < 0.01, n
 
 
+def test_clone_reader_imu_rows_match_jax_reader(tmp_path):
+    """The IMU rows eval_clone feeds the port (from disk, and rendered in
+    memory) equal those the JAX script reads through the native loader
+    (mc_slam_tpu.io.native_loader), the stream's first sample's 5 ms
+    included (ROADMAP F22)."""
+    from mc_slam_tpu.io import native_loader as jnative
+    from mc_slam_tpu_torch.tools import eval_clone
+    if not jnative.available():
+        pytest.skip("native/libeuroc_loader.so is not built (make -C native)")
+    torch.set_num_threads(2)
+    args = ["--duration", "0.4", "--tex-size", "256"]
+    make_euroc_clone.main(["--out", str(tmp_path / "t")] + args)
+    mav0 = str(tmp_path / "t" / "mav0")
+    ref = [(t, r) for t, _, r in jnative.NativeEurocLoader(mav0)]
+    disk, _, _ = eval_clone.frames_from_disk(mav0, 0)
+    mem, _, _ = eval_clone.frames_in_memory(eval_clone.parse_args(args), len(ref))
+    for got in (list(disk), list(mem)):
+        assert len(got) == len(ref) == 8
+        for (t, r), (tg, _, rg) in zip(ref, got):
+            np.testing.assert_allclose(tg, t, rtol=0, atol=1e-9)
+            np.testing.assert_array_equal(rg, r)
+    assert ref[1][1][0, 6] == np.float32(eval_clone.NATIVE_FIRST_DT)
+    assert np.isclose(ref[1][1][:, 6].sum(), 0.05)
+
+
 @pytest.fixture(scope="module")
 def cut_vocab():
     return (tbow.load_default_vocab(device="cpu")[:W_CUT].clone(),
