@@ -193,10 +193,12 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     the plain 1024 x 16384 Hamming matrix and the kernel on the frame step's
     first search; then `tools/bench_scaling.py`'s part A (the chunked
     whole-map VI BA at 128 keyframes, 12288 points, 96 chunks) at 2
-    iterations. Fails unless the kernel equals its twin on the frame step's
-    and the batched step's real searches, the kernel launched 2 times a
-    frame step and 2 times a batched step, and every BA cost curve is finite
-    and non-increasing; prints each workload's time and the launches a frame.
+    iterations. Fails unless the kernel equals its twin on the searches of
+    the first frame step and the first batched step that the workloads
+    timed (`probes.SearchRecorder` in front of the wrapper), the kernel
+    launched 2 times a frame step and 2 times a batched step, and every BA
+    cost curve is finite and non-increasing; prints each workload's time and
+    the launches a frame.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -206,7 +208,6 @@ import contextlib
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -236,6 +237,7 @@ from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix,
                                                  observation_counts)
 from mc_slam_tpu_torch.solver import ba_vi, factors
 from mc_slam_tpu_torch.tools.eval_clone import PROFILE_CONFIG, eviction_watch
+from mc_slam_tpu_torch.tools.probes import SearchRecorder, time_cuda, time_cuda_cold
 
 # the reference's EuRoC Tbc (config/euroc.yaml:40-44)
 TBC = np.array([
@@ -374,36 +376,6 @@ def build_map(seq: Sequence, p: Profile, cam, ext, device):
                                        good, p.n_levels, i, angle=f.angle)
         slot += 1
     return m, slot
-
-
-class SearchRecorder:
-    """Stands in for match_cuda.hamming_top2_windowed during a slice run:
-    calls the real wrapper, brackets every call with CUDA events (kernel
-    time inside the run) and keeps copies of the inputs of the first
-    `keep_frames` frames for the kernel-vs-twin check on real data."""
-
-    def __init__(self, keep_frames, timed: bool):
-        """keep_frames: an int (the first so many frames) or a collection of
-        frame indices."""
-        self.keep_frames = (set(range(keep_frames)) if isinstance(keep_frames, int)
-                            else set(keep_frames))
-        self.timed = timed
-        self.frame = 0
-        self.calls = []          # (frame, args, kwargs)
-        self.events = []         # (frame, start, end)
-
-    def __call__(self, *args, **kwargs):
-        if self.frame in self.keep_frames:
-            self.calls.append((self.frame, [a.clone() if isinstance(a, torch.Tensor)
-                                            else a for a in args], dict(kwargs)))
-        if self.timed:
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-            out = hamming_top2_windowed(*args, **kwargs)
-            e.record()
-            self.events.append((self.frame, s, e))
-            return out
-        return hamming_top2_windowed(*args, **kwargs)
 
 
 def run_slice(m, seq: Sequence, p: Profile, cam, ext, device, recorder=None,
@@ -1772,6 +1744,15 @@ EVICT_MIN_KF_VI = 1         # ... of them after VI init (the IMU chain spliced)
 EVICT_MIN_MP = 1            # point-eviction passes that deactivated a point, at least
 
 
+def check_cost_curve(name, costs):
+    """A BA's cost curve is not empty, finite and never rises; raises
+    otherwise."""
+    c = np.asarray(costs, np.float64)
+    if not c.size or not np.isfinite(c).all() or np.any(np.diff(c) > 0):
+        raise AssertionError(f"{name}: BA cost curve not finite and non-increasing "
+                             f"{c.tolist()}")
+
+
 def check_ba_curves(res, whole_curves=True):
     """Every BA of a bootstrap run (the two-view BA, each event's window BA,
     each whole-map BA of a VI-init attempt) ends at a finite cost no higher
@@ -1787,9 +1768,8 @@ def check_ba_curves(res, whole_curves=True):
     for name, b in bas:
         if not (np.isfinite(b["cost0"]) and np.isfinite(b["cost"])) or b["cost"] > b["cost0"]:
             raise AssertionError(f"{name}: BA cost {b['cost0']} -> {b['cost']}")
-        c = np.asarray(b.get("costs", []) if whole_curves else [], np.float64)
-        if c.size and (not np.isfinite(c).all() or np.any(np.diff(c) > 0)):
-            raise AssertionError(f"{name}: BA cost curve rises {c.tolist()}")
+        if whole_curves and len(b.get("costs", [])):
+            check_cost_curve(name, b["costs"])
     for e in res["events"]:
         if e["overflow"] != 0:
             raise AssertionError(f"event at frame {e['frame']}: {e['overflow']} "
@@ -2249,41 +2229,6 @@ def compare_kernel(inp, radius, level_tol=1):
             f"{(second != rsecond)[has].sum()} second, {(idx != ridx)[has].sum()} "
             f"idx rows differ")
     return int(err), int(has.sum())
-
-
-def time_cuda(fn, n=50, warmup=3, rounds=5):
-    """Median over `rounds` of the milliseconds of one `fn()`: n calls are
-    queued behind a device-side sleep, so the host's enqueue time is hidden
-    and the card runs them back to back; CUDA events around the batch."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(rounds):
-        torch.cuda._sleep(20_000_000)
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        for _ in range(n):
-            fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e) / n)
-    return statistics.median(times)
-
-
-def time_cuda_cold(fn, flush, n=20):
-    """Median milliseconds of one `fn()` that finds the L2 cold: a pass over
-    the 256 MB `flush` buffer evicts the 50 MB cache before each call."""
-    fn()
-    times = []
-    for _ in range(n):
-        flush.add_(1)
-        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return statistics.median(times)
 
 
 def kernel_bound(inp, radius, level_tol=1):
@@ -2818,12 +2763,6 @@ BENCH_CALLS = 3             # timed calls a workload in the phase "bench" (tools
 BENCH_GBA_ITERS = 2         # part A's LM iterations in the phase "bench" (bench_scaling: 8)
 
 
-def _check_curve(name, costs):
-    c = np.asarray(costs, np.float64)
-    if not c.size or not np.isfinite(c).all() or np.any(np.diff(c) > 0):
-        raise AssertionError(f"{name}: BA cost curve not finite and non-increasing {c.tolist()}")
-
-
 def bench_phase(dev):
     """The phase "bench" (see the module docstring). Returns (detail dict,
     launches of the frame steps, launches of the batched steps, max
@@ -2851,37 +2790,18 @@ def bench_phase(dev):
     _phase("bench", f"speed of light: {json.dumps(sub['speed_of_light'])}")
     if launches["frame_step"] != 2 * (n + 2) or launches["batched_step"] != 2 * (n + 2):
         raise AssertionError(f"kernel launches {launches}")
-    _check_curve("window VI BA", det["vi_ba_costs"])
-    _check_curve("IDP window BA", det["vi_ba_idp_costs"])
-    # the kernel on the real searches of one frame step and one batched step
-    img_np, pts, words = bench.synthetic_inputs(sz)
-    img = torch.from_numpy(img_np).to(dev)
-    m = bench.synthetic_map(sz, pts, words, dev)
-    cam, ext = tcam.euroc_camera(device=dev), factors.identity_extrinsics(device=dev)
-    from mc_slam_tpu_torch.parallel import multiseq
-    B = sz["batch"]
-    step = bench.make_frame_step(cam, ext, sz)
-    mstep = multiseq.make_batched_step(cam, ext, n_features=sz["n_feat"],
-                                       n_levels=sz["n_levels"])
-    rec = SearchRecorder(keep_frames=1, timed=False)
-    orig = match_cuda.hamming_top2_windowed
-    match_cuda.hamming_top2_windowed = rec
-    try:
-        step(img, m, torch.zeros(3, device=dev), torch.eye(3, device=dev))
-        mstep(multiseq.stack_maps([m] * B), img[None].expand(B, -1, -1).contiguous(),
-              torch.zeros(B, 3, device=dev), torch.eye(3, device=dev).expand(B, 3, 3))
-    finally:
-        match_cuda.hamming_top2_windowed = orig
-    err, n_real = _real_search_check(rec)
+    check_cost_curve("window VI BA", det["vi_ba_costs"])
+    check_cost_curve("IDP window BA", det["vi_ba_idp_costs"])
+    # the kernel on the searches the first frame step and the first batched step made
+    err, n_real = _real_search_check(det.pop("recorder"))
     if n_real != 4:
         raise AssertionError(f"{n_real} searches recorded (2 single, 2 batched)")
-    del rec
     _phase("bench", f"kernel == twin on the {n_real} real searches of a frame step and a "
-                    f"batched step of {B}")
+                    f"batched step of {sz['batch']}")
     # tools/bench_scaling.py's part A
     prob, meta = bench_scaling.synthetic_problem(**bench_scaling.SYNTH, device=dev)
     a = bench_scaling.part_a(prob, meta, BENCH_GBA_ITERS, dev, n=1, warm=0, profile=False)
-    _check_curve("chunked whole-map VI BA", a["costs"])
+    check_cost_curve("chunked whole-map VI BA", a["costs"])
     _phase("bench", f"chunked whole-map VI BA ({meta['n_kf']} keyframes, {meta['n_pts']} "
                     f"points, {meta['n_obs']} observations, {meta['chunks']} chunks): "
                     f"{a['measured_iter_ms_1dev']:.1f} ms an iteration (one cold call), peak "

@@ -24,7 +24,7 @@ reference's 20 frames/s; progress goes to stderr as "# ..." lines.
 5. the plain Hamming matrix 1024 x 16384 and its sum (`hamming_gpairs_s`),
    and the CUDA kernel on the frame step's first search, 16384 map points x
    1024 features at r = 15 px (`kernel_gpairs_s`, pairs gated a second; warm,
-   timed as chip_smoke.py times it).
+   timed with `probes.time_cuda`).
 6. speed of light: the operations and bytes of the Hamming sum, the IDP BA
    and the extraction from their shapes (`workload_counts`), over the
    measured times, against the H100's published peaks (67 TFLOP/s float32
@@ -36,9 +36,11 @@ reference's 20 frames/s; progress goes to stderr as "# ..." lines.
    2400 is `--e2e-frames 2400`); 0 turns it off. When it is off or fails the
    headline is frame_tracking_fps and the clone's accuracy comes from the
    newest artifact, labelled CACHED.
-8. robustness: the loops profile live when its clone is on disk; the hard
-   profile and the vocabulary evaluation from their artifacts, labelled
-   "cached artifact".
+8. robustness: the loops profile, the hard profile and the vocabulary
+   evaluation from the port's artifacts, labelled "cached artifact" (the
+   JAX bench runs the loops profile live when its clone is on disk; on the
+   card its 4800 frames take longer than one call, so the row says how many
+   frames its artifact covers).
 9. scaling: `tools.bench_scaling` in a subprocess, under sub["scaling"].
 
 sub["device"] is the card's `nvidia-smi --query-gpu=name,power.limit` line,
@@ -50,6 +52,7 @@ launch counts and roofline shares are null).
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import subprocess
@@ -59,6 +62,8 @@ import time
 
 import numpy as np
 import torch
+
+from mc_slam_tpu_torch.tools import probes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -156,18 +161,15 @@ def ba_calls(p, pi, iters=BA_ITERS):
     return vi, idp
 
 
-def first_search_args(frame_step, img, m, P0, R0):
-    """The kernel wrapper's arguments of the frame step's first search,
-    recorded from one call of it."""
-    from mc_slam_tpu_torch.frontend import match_cuda
-    calls = []
-    wrapper = match_cuda.hamming_top2_windowed
-    match_cuda.hamming_top2_windowed = lambda *a, **kw: calls.append((a, kw)) or wrapper(*a, **kw)
-    try:
-        frame_step(img, m, P0, R0)
-    finally:
-        match_cuda.hamming_top2_windowed = wrapper
-    return calls[0]
+def numbered(rec, tag, f):
+    """f, with the recorder's frame set to (tag, n) on its n-th call, so a
+    recorder keeping (tag, 0) keeps the searches of the first call."""
+    calls = itertools.count()
+
+    def g():
+        rec.frame = (tag, next(calls))
+        return f()
+    return g
 
 
 def workload_counts(sz, n_obs_idp, iters=BA_ITERS):
@@ -255,8 +257,10 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
                   profile=True):
     """Workloads 1-6 in this process; with `profile` (on the card) the
     kernels and copies of a frame step and of a batched step under
-    torch.profiler, last. Returns (sub dict, detail dict with the BA cost
-    curves and the kernel's launches by workload)."""
+    torch.profiler, last. A `probes.SearchRecorder` in front of the kernel's
+    wrapper keeps the searches of the first frame step and of the first
+    batched step. Returns (sub dict, detail dict with the BA cost curves,
+    the kernel's launches by workload and the recorder)."""
     from mc_slam_tpu_torch.camera import euroc_camera
     from mc_slam_tpu_torch.frontend import extractor, match_cuda, matching
     from mc_slam_tpu_torch.parallel import multiseq
@@ -269,12 +273,16 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     img = torch.from_numpy(img_np).to(device)
     m = synthetic_map(sz, pts, words, device)
     P0, R0 = torch.zeros(3, device=device), torch.eye(3, device=device)
-    detail = {"launches": {}}
+    rec = probes.SearchRecorder(keep_frames={("frame_step", 0), ("batched_step", 0)},
+                                timed=False)
+    detail = {"launches": {}, "recorder": rec}
 
     # 1: the fused frame step
     frame_step = make_frame_step(cam, ext, sz)
     counter.launches = 0
-    dt_frame, _ = timeit(lambda: frame_step(img, m, P0, R0), cuda, n=n_frame)
+    with probes.recording(rec):
+        dt_frame, _ = timeit(numbered(rec, "frame_step", lambda: frame_step(img, m, P0, R0)),
+                             cuda, n=n_frame)
     detail["launches"]["frame_step"] = counter.launches
     fps = 1.0 / dt_frame
     log(f"frame_tracking: {dt_frame * 1e3:.2f} ms -> {fps:.1f} fps "
@@ -304,7 +312,9 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     mstep = multiseq.make_batched_step(cam, ext, n_features=sz["n_feat"],
                                        n_levels=sz["n_levels"])
     counter.launches = 0
-    dt_ms, _ = timeit(lambda: mstep(ms, imgs_b, P0b, R0b)[0], cuda, n=n_batched)
+    with probes.recording(rec):
+        dt_ms, _ = timeit(numbered(rec, "batched_step", lambda: mstep(ms, imgs_b, P0b, R0b)[0]),
+                          cuda, n=n_batched)
     detail["launches"]["batched_step"] = counter.launches
     fps_agg = B / dt_ms
     log(f"batched {B}-seq tracking: {dt_ms * 1e3:.2f} ms -> {fps_agg:.0f} frames/s "
@@ -319,9 +329,8 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     log(f"hamming {a.shape[0]}x{pm1.shape[0]}: {dt_hm * 1e3:.3f} ms -> {rate:.1f} Gpairs/s")
     kernel_rate = None
     if cuda:
-        from chip_smoke import time_cuda        # the kernel's warm timing, host time hidden
-        args, kw = first_search_args(frame_step, img, m, P0, R0)
-        dt_k = time_cuda(lambda: counter(*args, **kw)) / 1e3
+        _, args, kw = rec.calls[0]              # the first frame step's first search
+        dt_k = probes.time_cuda(lambda: counter(*args, **kw)) / 1e3
         M, N = args[0].shape[0], args[5].shape[0]
         kernel_rate = M * N / dt_k / 1e9
         log(f"hamming_top2_windowed {M}x{N} r={args[10]:g}: {dt_k * 1e6:.2f} us -> "
@@ -406,27 +415,22 @@ def end_to_end(frames, device, sub):
     return e2e["e2e_fps_amortized"]
 
 
-def robustness(device, sub, live):
-    """Workload 8: the loops profile live (with `live`) where its clone is
-    on disk; the hard profile and the vocabulary evaluation from their
-    artifacts."""
-    from mc_slam_tpu_torch.tools.eval_clone import PROFILE_DATASET
-    loops_csv = os.path.join(ROOT, PROFILE_DATASET["loops"], "mav0", "cam0", "data.csv")
-    if live and os.path.exists(loops_csv):
-        with tempfile.TemporaryDirectory() as tmp:
-            out = os.path.join(tmp, "ate_clone_loops_bench.json")
-            try:
-                run_module(["mc_slam_tpu_torch.tools.eval_clone", "--profile", "loops",
-                            "--device", device.type, "--out", out], timeout=3000)
-                with open(out) as f:
-                    lp = json.load(f)
-                sub["loops_profile"] = {k: lp.get(k) for k in (
-                    "e2e_fps_amortized", "loops_closed", "n_lost", "max_lost_streak",
-                    "ate_rmse", "ate_rmse_post_init", "dataset_hash")}
-                log(f"loops profile (live): {sub['loops_profile']}")
-            except (RuntimeError, subprocess.SubprocessError, OSError, ValueError) as err:
-                log(f"loops profile skipped: {err}")
+def robustness(sub):
+    """Workload 8, from the port's artifacts, each labelled "cached
+    artifact": the loops profile (no whole 4800-frame run fits in one call
+    on the card yet; `frames` against `profile_frames` says how far the
+    artifact's run got), the hard profile and the vocabulary evaluation."""
+    from mc_slam_tpu_torch.tools.eval_clone import PROFILE_DURATION
     art = os.path.join(ROOT, "artifacts")
+    path = os.path.join(art, "ate_clone_loops_torch.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            d = json.load(f)
+        sub["loops_profile"] = {k: d.get(k) for k in (
+            "frames", "e2e_fps_amortized", "loops_closed", "n_lost", "max_lost_streak",
+            "ate_rmse", "ate_rmse_post_init", "card")}
+        sub["loops_profile"]["profile_frames"] = int(PROFILE_DURATION["loops"] * 20)   # 20 Hz
+        sub["loops_profile"]["provenance"] = "cached artifact"
     path = os.path.join(art, "ate_clone_hard_torch.json")
     if os.path.exists(path):
         with open(path) as f:
@@ -496,7 +500,7 @@ def main(argv=None):
     if frames is None:
         frames = int(os.environ.get("BENCH_E2E_FRAMES", E2E_FRAMES))
     e2e_fps = end_to_end(frames, device, sub) if frames else None
-    robustness(device, sub, live=bool(frames))
+    robustness(sub)
     scaling(device, args.small, sub)
     if e2e_fps is None:
         cached_clone(sub)

@@ -10,11 +10,11 @@ C entry point as a baseline. Every build is held exactly against the plain
 PyTorch twin at M=16384 x N=1024 and the ragged 16001 x 1000, radii 4, 15 and
 40 px, on chip_smoke.planted_inputs. Then each is timed at 16384 x 1024:
 
-* warm (chip_smoke.time_cuda): 200 launches queued behind a device-side
+* warm (probes.time_cuda): 200 launches queued behind a device-side
   sleep, so the host's enqueue time is hidden and the card runs them back to
   back; CUDA events around the batch, divided by its count. Variants take
   turns (a, b, ..., b, a) and the median over rounds is kept.
-* cold (chip_smoke.time_cuda_cold): a pass over a 256 MB buffer between
+* cold (probes.time_cuda_cold): a pass over a 256 MB buffer between
   launches evicts the 50 MB L2; CUDA events around each single launch, median.
 * wrapper: the shipped build through match_cuda.hamming_top2_windowed, warm,
   Python wrapper included.
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from mc_slam_tpu_torch.frontend import match_cuda
+from mc_slam_tpu_torch.tools import probes
 
 RADII = (4.0, 15.0, 40.0)
 ARG_KEYS = ("a_desc", "a_uv", "a_lvl", "a_valid", "b_desc", "b_uv", "b_lvl", "b_valid")
@@ -150,8 +151,8 @@ def main():
         warm = {n: [] for n in names}
         for _ in range(args.rounds):
             for n in names + names[::-1]:
-                warm[n].append(chip_smoke.time_cuda(raws[n].launch, n=200, rounds=1))
-        cold = {n: chip_smoke.time_cuda_cold(raws[n].launch, flush, n=30) for n in names}
+                warm[n].append(probes.time_cuda(raws[n].launch, n=200, rounds=1))
+        cold = {n: probes.time_cuda_cold(raws[n].launch, flush, n=30) for n in names}
         for n in names:
             result["warm_ms"].setdefault(n, {})[f"{r:g}"] = statistics.median(warm[n])
             result["cold_ms"].setdefault(n, {})[f"{r:g}"] = cold[n]
@@ -163,7 +164,7 @@ def main():
     wargs = [big[k] for k in ("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid",
                               "b_desc", "b_pm1", "b_uv", "b_lvl", "b_valid")]
     result["wrapper_ms"] = {
-        f"{r:g}": chip_smoke.time_cuda(lambda: match_cuda.hamming_top2_windowed(*wargs, r))
+        f"{r:g}": probes.time_cuda(lambda: match_cuda.hamming_top2_windowed(*wargs, r))
         for r in RADII}
     print(f"[time] wrapper: {result['wrapper_ms']}", flush=True)
     if args.batch:
@@ -174,9 +175,9 @@ def main():
         batched = {"B": B, "warm_ms": {}, "cold_ms": {}, "bound_ms": {}}
         for r in RADII:
             chip_smoke.compare_kernel(inp, r)
-            batched["warm_ms"][f"{r:g}"] = chip_smoke.time_cuda(
+            batched["warm_ms"][f"{r:g}"] = probes.time_cuda(
                 lambda: match_cuda.hamming_top2_windowed(*bargs, r))
-            batched["cold_ms"][f"{r:g}"] = chip_smoke.time_cuda_cold(
+            batched["cold_ms"][f"{r:g}"] = probes.time_cuda_cold(
                 lambda: match_cuda.hamming_top2_windowed(*bargs, r), flush, n=30)
             batched["bound_ms"][f"{r:g}"] = chip_smoke.kernel_bound(inp, r)[0]
             print(f"[batch] B={B} r={r:g}: exact; one launch warm "

@@ -2,14 +2,14 @@
 examples/bench_scaling.py, parts A and B, and part C's exact byte count).
 
     python3 -m mc_slam_tpu_torch.tools.bench_scaling [--device cuda|cpu]
-        [--ckpt PATH] [--iters 8] [--small]
+        [--ckpt PATH] [--small]
 
 A. The landmark-chunked whole-map VI BA (`ba_chunked.vi_gba_chunked`,
-   `--iters` LM iterations, one round) on one device at map scale: on the
-   map of a checkpoint when `--ckpt` names one (`eval_clone
-   --save-checkpoint`, read with `io.checkpoint.load_map`; its active
-   keyframes in slot order, a multiple of 8 chunks of 1024 landmarks, the
-   IMU chain over consecutive keyframes), else on the synthetic
+   `ITERS` = 8 LM iterations, one round, as in the JAX script) on one
+   device at map scale: on the map of a checkpoint when `--ckpt` names one
+   (`eval_clone --save-checkpoint`, read with `io.checkpoint.load_map`;
+   its active keyframes in slot order, a multiple of 8 chunks of 1024
+   landmarks, the IMU chain over consecutive keyframes), else on
    `bench_problems.vi_window_problem(n_kf=128, n_pts=12288, obs_per_kf=400)`
    in 96 chunks. Reports ms an iteration and iterations/s (the mean of 3
    calls after 1 warm-up, host clock ending in a synchronize), launches an
@@ -39,7 +39,6 @@ import json
 import os
 import subprocess
 import sys
-import time
 
 import numpy as np
 import torch
@@ -50,6 +49,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 DV = 6          # the columns of a keyframe block in the reduced system
 MESH_SHARDS = 8
 MESH_ITERS = 4
+ITERS = 8        # part A's LM iterations (examples/bench_scaling.py:163)
 SYNTH = dict(n_kf=128, n_pts=12288, obs_per_kf=400, chunks=96)
 SMALL = dict(n_kf=8, n_pts=512, obs_per_kf=256, chunks=8)
 
@@ -177,7 +177,6 @@ def build_parser():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--ckpt", default="", help="an eval_clone checkpoint (.npz)")
-    ap.add_argument("--iters", type=int, default=8)
     ap.add_argument("--small", action="store_true")
     ap.add_argument("--mesh-sub", action="store_true", help=argparse.SUPPRESS)
     return ap
@@ -190,7 +189,7 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("bench_scaling: no GPU (pass --device cpu to run on the host)")
-    a = part_a(*build_problem(args, device), args.iters, device)
+    a = part_a(*build_problem(args, device), ITERS, device)
     sub = [sys.executable, "-m", "mc_slam_tpu_torch.tools.bench_scaling", "--mesh-sub"]
     sub += (["--ckpt", args.ckpt] if args.ckpt else []) + (["--small"] if args.small else [])
     try:

@@ -18,7 +18,9 @@ examples/bench_scaling.py) on the CPU, at `--small` widths.
   (random IMU rows), so the two solves are held relative to the moves of
   the port's (keyframes 5e-3, landmarks 2e-3 of them) and the final cost to
   1e-4 relative.
-* `tools.bench.main` on the CPU prints one JSON line with bench.py's keys.
+* `tools.bench.main` on the CPU prints one JSON line with bench.py's keys;
+  `run_workloads` records the searches of its first frame step and first
+  batched step.
 """
 import importlib.util
 import json
@@ -40,7 +42,8 @@ from mc_slam_tpu.solver import ba_chunked as jbc, factors as jfac
 from mc_slam_tpu_torch.camera import euroc_camera
 from mc_slam_tpu_torch.frontend import extractor as tex
 from mc_slam_tpu_torch.solver import ba_chunked as tbc, factors as tfac
-from mc_slam_tpu_torch.tools import bench, bench_scaling
+from mc_slam_tpu_torch.frontend import match_cuda
+from mc_slam_tpu_torch.tools import bench, bench_scaling, probes
 
 from torch_port_helpers import jax_features, small_run
 
@@ -100,7 +103,11 @@ def test_frame_step_matches_jax_on_shared_features(small_frame):
     np.testing.assert_allclose(P.numpy(), np.asarray(jr.P), rtol=0, atol=1e-4)
     assert int(n_in) == int(jr.n_inliers)
     # the kernel's arguments of the first search: the whole map against the frame, 15 px
-    args, kw = bench.first_search_args(step, img, m, torch.zeros(3), torch.eye(3))
+    rec = probes.SearchRecorder(keep_frames=1, timed=False)
+    with probes.recording(rec):
+        step(img, m, torch.zeros(3), torch.eye(3))
+    assert len(rec.calls) == 2
+    _, args, kw = rec.calls[0]
     assert args[0].shape == (sz["n_mp"], 8) and args[5].shape == (sz["n_feat"], 8)
     assert args[10] == 15.0 and not kw
 
@@ -253,5 +260,24 @@ def test_bench_main_prints_one_json_line(capsys, monkeypatch):
     assert sub["launches_per_frame"] is None
     assert sub["ate_clone_provenance"].startswith("CACHED")
     assert sub["hard_profile"]["provenance"] == "cached artifact"
+    loops = sub["loops_profile"]
+    assert loops["provenance"] == "cached artifact" and loops["profile_frames"] == 4800
+    assert 0 < loops["frames"] <= 4800
     assert sub["scaling"]["problem"]["n_kf"] == 8
     assert "not a scaling measurement" in sub["scaling"]["cpu_mesh_structural"]["note"]
+    assert match_cuda.hamming_top2_windowed is match_cuda._WRAPPER     # the recorder is gone
+
+
+def test_run_workloads_records_the_first_steps_searches():
+    """The recorder run_workloads puts in front of the kernel's wrapper
+    keeps the two searches of the first frame step and of the first batched
+    step (chip_smoke.py's phase "bench" holds the kernel against its twin on
+    them) and nothing of the other calls."""
+    sz = bench.SMALL
+    _, det = bench.run_workloads(sz, CPU, n_frame=1, n_ex=1, n_ba=1, n_batched=1, n_hm=1)
+    calls = det["recorder"].calls
+    assert [c[0] for c in calls] == [("frame_step", 0)] * 2 + [("batched_step", 0)] * 2
+    single, batched = calls[0][1], calls[2][1]
+    assert single[0].shape == (sz["n_mp"], 8) and single[10] == 15.0
+    assert batched[0].shape == (sz["batch"], sz["n_mp"], 8) and batched[10] == 15.0
+    assert match_cuda.hamming_top2_windowed is match_cuda._WRAPPER

@@ -197,20 +197,21 @@ def test_evaluation_tools_are_covered(mod):
     assert proc.returncode == 0, proc.stderr
 
 
-BENCH_TOOL_MODULES = ("tools.bench", "tools.bench_scaling")
+BENCH_TOOL_MODULES = ("tools.bench", "tools.bench_scaling", "tools.probes")
 
 
 @pytest.mark.parametrize("mod", BENCH_TOOL_MODULES)
 def test_benchmark_tools_are_covered(mod):
-    """The ports of bench.py and examples/bench_scaling.py are among the
-    modules the import test walks, name neither jax nor the JAX package in
-    an import line, and import by themselves in a fresh interpreter without
-    pulling either in."""
+    """The ports of bench.py and examples/bench_scaling.py, and the kernel
+    probes they share with chip_smoke.py, are among the modules the import
+    test walks, name neither jax, the JAX package nor chip_smoke in an
+    import line (function-local ones too: those run only on the card), and
+    import by themselves in a fresh interpreter without pulling either in."""
     assert f"mc_slam_tpu_torch.{mod}" in _port_modules()
     src = (ROOT / "mc_slam_tpu_torch" / (mod.replace(".", "/") + ".py")).read_text()
     imports = [l.strip() for l in src.splitlines() if l.strip().startswith(("import ", "from "))]
     assert imports and not any("jax" in l or "mc_slam_tpu." in l.replace("mc_slam_tpu_torch", "")
-                               for l in imports)
+                               or "chip_smoke" in l for l in imports)
     proc = _run(f"import sys, mc_slam_tpu_torch.{mod}\n"
                 "assert 'jax' not in sys.modules and 'mc_slam_tpu' not in sys.modules\n")
     assert proc.returncode == 0, proc.stderr
@@ -236,7 +237,7 @@ def test_vocabulary_loads_without_the_jax_package():
 
 
 @pytest.mark.parametrize("tool", ["bench_hamming", "profile_event", "eval_clone",
-                                  "run_multihost_ba", "eval_vocab"])
+                                  "run_multihost_ba", "eval_vocab", "bench", "bench_scaling"])
 def test_measurement_tools_refuse_without_gpu(tool):
     proc = subprocess.run([sys.executable, "-m", f"mc_slam_tpu_torch.tools.{tool}"],
                           cwd=ROOT, capture_output=True, text=True, timeout=300,
