@@ -121,7 +121,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     a frame, the harvest pulls, the deepest queue, `ev_chain_drain`,
     keyframes, events harvested deferred, lost frames, ATE and peak memory;
     at the very end of the script (the profiler slows what runs after it)
-    the device-busy share of 10 more frames of each. Fails on a lost frame,
+    the device-busy share of 5 more frames of each. Fails on a lost frame,
     an ATE of 5 cm or more, B without a trajectory row per frame or with an
     entry pending after `flush()`, fewer than 10 pairs or no event harvested
     deferred, B more than 2 cm from A on a frame, or kernel != twin on the
@@ -150,7 +150,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     phase "evict": a new `SlamSystem` at examples/eval_clone.py's small
     profile's widths (752x480, 512 features, 3 levels, window 8) with its
     tables cut to 10 keyframes and 768 points (`EVICT`), from raw clone
-    frames with VI init at 5 s and 60 VI frames after it, under
+    frames with VI init at 5 s and 40 VI frames after it, under
     `eviction_watch` (the allocator's evictions and the tables before and
     after each event's landmark maintenance). Fails unless at least 2
     keyframes are evicted at capacity, 1 of them after VI init (its IMU
@@ -1499,7 +1499,7 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
 
 ASYNC_FRAMES = 20           # clone frames each mode of the phase "async" tracks (40 took the
                             # script past 900 s on one host, 30 to 965 s)
-ASYNC_PROFILE_FRAMES = 10   # the window after them that torch.profiler traces
+ASYNC_PROFILE_FRAMES = 5    # the window after them that torch.profiler traces
 ASYNC_LAG_MAX, ASYNC_PAIR = 12, 2   # mode B: the JAX package's defaults (mode A: 1, 1)
 ASYNC_POS_TOL = 0.02        # m, B's positions against A's, frame by frame
 ASYNC_MIN_PAIRS = ASYNC_FRAMES // 2   # pairs B must dispatch: every frame in a pair
@@ -1735,10 +1735,13 @@ def check_bootstrap(res, seq: Sequence, p: Profile):
 # the card (10 or 11 keyframes with 1024 points, 12 with 1536) evicted 3-5
 # keyframes but no point: the orphan sweep above 90 % holds those tables
 # under the 95 % at which point eviction starts; 768 points reach it (at
-# frames 96, 101 and 120). 60 VI frames keep the phase near 2 minutes
+# frames 96, 101 and 120). 40 VI frames (60 until the script took 1237 s on
+# a slow host) keep 2-3 of the 4 keyframe evictions that 60 gave (on the CPU
+# at the events of frames 104, 119, 139 and 159) and the phase near 1.5
+# minutes
 EVICT = dataclasses.replace(EUROC, n_feat=512, n_levels=3, local_window=8, max_kf=10,
                             max_mp=768, vi_init_time=5.0, boot_max_frame=160,
-                            n_vi_frames=60)
+                            n_vi_frames=40)
 EVICT_MIN_KF = 2            # keyframes evicted at capacity through the allocator, at least
 EVICT_MIN_KF_VI = 1         # ... of them after VI init (the IMU chain spliced)
 EVICT_MIN_MP = 1            # point-eviction passes that deactivated a point, at least
@@ -2021,7 +2024,7 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
                     f"{p.n_vi_frames} VI frames after it")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = SearchRecorder(keep_frames={120, 140, 150}, timed=False)
+    rec = SearchRecorder(keep_frames={110, 120, 130}, timed=False)
     hamming_top2_windowed.launches = 0
     t0 = time.time()
     res, watch = run_evict(seq, p, cam, dev, recorder=rec)
@@ -2851,8 +2854,9 @@ def async_phase(path, slam, rv, seq: Sequence):
 
 
 def async_profile_phase(modes, seq: Sequence, detail):
-    """The device-busy share of the phase "async"'s two systems over the 10
-    clone frames after their timed runs, last in the script."""
+    """The device-busy share of the phase "async"'s two systems over the
+    ASYNC_PROFILE_FRAMES clone frames after their timed runs, last in the
+    script."""
     t0 = time.time()
     for r, s in modes:
         profile_async_mode(s, r, seq)
