@@ -251,6 +251,7 @@ KERNEL_SOURCE = "mc_slam_tpu_torch/csrc/hamming_top2_windowed.cu"
 KERNEL_REPLACES = "mc_slam_tpu/frontend/match_pallas.py:100"
 RADII = (4.0, 15.0, 40.0)
 RMSE_LIMIT_LOC = 0.02       # m, path 1 (tracking against a ground-truth map)
+PATH1_FRAMES = 10           # frames path 1 tracks
 RMSE_LIMIT_MAP = 0.03       # m, path 2 (tracking against the live map)
 # Published peaks of one H100 SXM at 700 W: 3.35 TB/s of HBM; 67 TFLOP/s of
 # float32 outside the tensor cores counts a fused multiply-add as two, so
@@ -773,13 +774,12 @@ def run_bootstrap(seq: Sequence, p: Profile, cam, device, recorder=None):
 
 def count_kernels(fn):
     """Run fn() under torch.profiler; returns (its result, the number of
-    kernels and copies the card ran for it)."""
-    from torch.profiler import ProfilerActivity, profile
+    kernels and copies the card ran for it). Device activity only, read from
+    the raw records (`device_busy_ms`): tracing the host side as well and
+    building `prof.events()` took ~45 s over the chunked BA's 72k kernels."""
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        out = fn()
-        torch.cuda.synchronize()
-    return out, sum(ev.device_type == torch.autograd.DeviceType.CUDA for ev in prof.events())
+    out, _, _, n = device_busy_ms(fn)
+    return out, n
 
 
 def run_refine_and_chunked(res, seq: Sequence, p: Profile):
@@ -1263,7 +1263,7 @@ MESH_DP_TOL = 1.5e-3        # m, sharded against unsharded keyframe positions: ~
 MESH_DCOST_TOL = 2e-5       # relative final cost, sharded against unsharded (~10 x 1.8e-6)
 MESH_MOVE_MIN = 2.5e-2      # m, the least keyframe move of the unsharded BA (~17 x MESH_DP_TOL)
 MESH_PG_TOL = 2e-3          # m, the sharded pose graph's keyframes (the loop event's parity)
-CKPT_FRAMES = 20            # clone frames the resumed system tracks
+CKPT_FRAMES = 10            # clone frames the resumed system tracks
 
 
 def two_shard_mesh(device, axis="mp"):
@@ -1499,7 +1499,7 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
 
 ASYNC_FRAMES = 20           # clone frames each mode of the phase "async" tracks (40 took the
                             # script past 900 s on one host, 30 to 965 s)
-ASYNC_PROFILE_FRAMES = 5    # the window after them that torch.profiler traces
+ASYNC_PROFILE_FRAMES = 2    # the window after them that torch.profiler traces
 ASYNC_LAG_MAX, ASYNC_PAIR = 12, 2   # mode B: the JAX package's defaults (mode A: 1, 1)
 ASYNC_POS_TOL = 0.02        # m, B's positions against A's, frame by frame
 ASYNC_MIN_PAIRS = ASYNC_FRAMES // 2   # pairs B must dispatch: every frame in a pair
@@ -1741,7 +1741,7 @@ def check_bootstrap(res, seq: Sequence, p: Profile):
 # minutes
 EVICT = dataclasses.replace(EUROC, n_feat=512, n_levels=3, local_window=8, max_kf=10,
                             max_mp=768, vi_init_time=5.0, boot_max_frame=160,
-                            n_vi_frames=40)
+                            n_vi_frames=28)
 EVICT_MIN_KF = 2            # keyframes evicted at capacity through the allocator, at least
 EVICT_MIN_KF_VI = 1         # ... of them after VI init (the IMU chain spliced)
 EVICT_MIN_MP = 1            # point-eviction passes that deactivated a point, at least
@@ -1825,7 +1825,8 @@ def run_evict(seq: Sequence, p: Profile, cam, device, recorder=None):
 # Paths 6 and 7: the depth sensors (RGB-D, rectified stereo + IMU)
 # ---------------------------------------------------------------------------
 
-DEPTH_FRAMES = 120          # clone frames of path 6, and of path 7 before its VI frames
+DEPTH_FRAMES = 60           # clone frames of path 6
+STEREO_FRAMES = 125         # right images path 7 renders at once (its run took 122 frames)
 ATE_LIMIT_RGBD = 0.02       # m, path 6
 SCALE_TOL_RGBD = 0.05       # path 6: tests/test_e2e_depth.py::test_rgbd_mode_metric's gate
 SCALE_TOL_STEREO = 0.2      # path 7: tests/test_e2e_depth.py::test_stereo_mode_metric's gate
@@ -1844,8 +1845,10 @@ def render_right(seq: Sequence, p: Profile, frames, seed: int = 0):
     (world-from-camera Rwc = R Rbc at Cw = P + R pbc) moved by
     SlamConfig.stereo_baseline along its own x axis, rendered by the same
     RoomWorld (as tests/render.py's render_stereo does for the dot world).
-    Returns {frame: (H, W) uint8}; the frames render in a thread pool."""
-    from concurrent.futures import ThreadPoolExecutor
+    Returns {frame: (H, W) uint8}. The frames render one after another:
+    the renderer's products go through numpy's OpenBLAS, whose thread pool
+    gives wrong rows when several threads call it at once (on 8 threads, 1
+    or 2 of 32 frames came out with patches of wrong pixels)."""
     cam = profile_camera(p, "cpu")
     world = RoomWorld(np.random.default_rng(seed), tex_size=p.tex_size, tex_scale=1.0)
     Rbc, pbc = TBC[:3, :3], TBC[:3, 3]
@@ -1855,8 +1858,7 @@ def render_right(seq: Sequence, p: Profile, frames, seed: int = 0):
         Rwc = seq.R[i] @ Rbc
         return world.render(cam, Rwc, seq.P[i] + seq.R[i] @ pbc + Rwc @ np.array([b, 0.0, 0.0]))
 
-    with ThreadPoolExecutor(8) as ex:
-        return dict(zip(frames, ex.map(one, frames)))
+    return {i: one(i) for i in frames}
 
 
 @contextlib.contextmanager
@@ -2499,7 +2501,7 @@ def revisit_phase(res, seq: Sequence, p: Profile):
 # (parallel/multiseq.py, BASELINE.json config #4)
 
 MULTISEQ_STARTS = tuple(range(0, 101, 10))   # 11 windows: config #4's "all 11" sequences
-MULTISEQ_STEPS = 10         # frames tracked in each window after its seed frame
+MULTISEQ_STEPS = 5          # frames tracked in each window after its seed frame
 MULTISEQ_ITERS = 10         # make_batched_step's default
 MULTISEQ_POS_TOL = 1e-3     # m, batched against unbatched (tests/test_multiseq.py)
 MULTISEQ_INLIER_TOL = 2     # inliers, the same test's tolerance
@@ -2880,6 +2882,11 @@ def main():
                          "this script measures the port on a GPU only")
     dev = torch.device("cuda", 0)
     t_start = time.time()
+    laps = {}
+
+    def lap(name):
+        # the seconds since the previous phase ended (the script's time budget)
+        laps[name] = time.time() - t_start - sum(laps.values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -2926,11 +2933,14 @@ def main():
                 _phase("kernel", f"M={M} N={N} r={radius:g}: exact ({n_has} rows matched)")
     del flush
 
+    lap("build and kernel")
     # ---- phase 3: path 1, localization against a ground-truth map ----
     p = EUROC
     t0 = time.time()
+    # depth kept for path 6 and the multiseq windows' seed maps
+    n_depth = max(DEPTH_FRAMES, MULTISEQ_STARTS[-1] + MULTISEQ_STEPS + 1)
     seq_boot = make_sequence(dataclasses.replace(p, n_frames=EUROC_SYSTEM_FRAMES), seed=0,
-                             n_depth=DEPTH_FRAMES)
+                             n_depth=n_depth)
     seq = dataclasses.replace(seq_boot, imgs=seq_boot.imgs[:p.n_frames],
                               depths=seq_boot.depths[:p.n_frames],
                               imu=seq_boot.imu[:p.n_frames])
@@ -2942,7 +2952,7 @@ def main():
     check_pack(m.kf_desc.reshape(-1, 8), m.kf_pm1.reshape(-1, 256))
     _phase("map", f"{EUROC_SYSTEM_FRAMES} frames {p.width}x{p.height} rendered, the first "
                   f"{p.n_frames} of them for paths 1 and 2, the depth of the first "
-                  f"{DEPTH_FRAMES} kept for path 6; {n_kf} "
+                  f"{n_depth} kept for path 6 and the phase \"multiseq\"; {n_kf} "
                   f"keyframes, {n_pts}/{p.max_mp} map points "
                   f"({time.time() - t0:.1f} s)")
     # warm-up pass (allocator, cuBLAS/cuSOLVER handles) on a copy of the map,
@@ -2952,23 +2962,24 @@ def main():
     rec = SearchRecorder(keep_frames=3, timed=True)
     hamming_top2_windowed.launches = 0
     t0 = time.time()
-    res = run_slice(m, seq, p, cam, ext, dev, recorder=rec, timed=True)
+    res = run_slice(m, seq, dataclasses.replace(p, n_frames=PATH1_FRAMES + 1), cam, ext, dev,
+                    recorder=rec, timed=True)
     launches_loc = hamming_top2_windowed.launches
     wall = time.time() - t0
-    n_tracked = p.n_frames - 1
+    n_loc = PATH1_FRAMES
     summ = res["summary"]
     ms = np.asarray(res["ms"])
     k_ms = sum(s.elapsed_time(e) for _, s, e in rec.events)
     n_fb = int(summ[:, 2].sum())
-    _phase("path1", f"{n_tracked} frames tracked in {wall:.1f} s; launches "
+    _phase("path1", f"{n_loc} frames tracked in {wall:.1f} s; launches "
                     f"{launches_loc}; fallbacks {n_fb}; inliers min {summ[:, 0].min():.0f} "
                     f"median {np.median(summ[:, 0]):.0f}; position RMSE "
                     f"{res['rmse'] * 1e3:.2f} mm")
     _phase("path1", f"ms/frame median {np.median(ms):.2f} p90 "
                     f"{np.percentile(ms, 90):.2f}; kernel share "
                     f"{100.0 * k_ms / ms.sum():.3f}% ({k_ms:.2f} ms of {ms.sum():.1f} ms)")
-    if launches_loc < 2 * n_tracked:
-        raise AssertionError(f"kernel launched {launches_loc} times for {n_tracked} frames")
+    if launches_loc < 2 * n_loc:
+        raise AssertionError(f"kernel launched {launches_loc} times for {n_loc} frames")
     if summ[:, 0].min() < p.fb_min_inliers:
         raise AssertionError(f"a frame kept {summ[:, 0].min():.0f} inliers "
                              f"(< {p.fb_min_inliers})")
@@ -2980,7 +2991,9 @@ def main():
     rmse_loc = res["rmse"]
     del m, res, rec
 
+    lap("render and path 1")
     # ---- phase 4: path 2, track and map ----
+    n_tracked = p.n_frames - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec2 = SearchRecorder(keep_frames={0, 9, 19}, timed=False)
@@ -3014,11 +3027,13 @@ def main():
 
     del res2["m"], rec2
 
+    lap("path 2")
     # ---- phase 5: path 3, bootstrap from raw frames to VI tracking (5 s init) ----
     detail3, launches_boot, err, res3 = bootstrap_phase("path3", seq_boot, p, cam, dev)
     max_err = max(max_err, err)
     del res3
 
+    lap("path 3")
     # ---- phase 6: path 4, the system at the published configuration (15 s init) ----
     detail4, launches_sys, err, res4 = bootstrap_phase("path4", seq_boot, EUROC_SYSTEM, cam,
                                                        dev, refine=True)
@@ -3038,6 +3053,7 @@ def main():
                    f"{MESH_DCOST_TOL * 100:g}); {mg['sharded']['ms']:.1f} ms sharded, "
                    f"{mg['single']['ms']:.1f} ms single ({time.time() - t0:.1f} s)")
 
+    lap("path 4, chunked, mesh")
     # ---- phase 7: path 5, kidnap / relocalization / loop closing on path 4's system ----
     detail5, launches_rev, err, rv5, lp5 = revisit_phase(res4, seq_boot, EUROC_SYSTEM)
     max_err = max(max_err, err)
@@ -3052,6 +3068,7 @@ def main():
                    f"{mp['single']['cost']:.5f}; {mp['sharded']['ms']:.1f} ms sharded, "
                    f"{mp['single']['ms']:.1f} ms single ({time.time() - t0:.1f} s)")
 
+    lap("path 5, loop, mesh")
     # ---- phase "checkpoint": save, load into a fresh system, track on ----
     t0 = time.time()
     ck_dir = tempfile.TemporaryDirectory()
@@ -3075,20 +3092,23 @@ def main():
                          f"{RELOC_POS_TOL * 1e3:.0f}), alignment scale "
                          f"{ck['ate']['scale']:.4f} ({time.time() - t0:.1f} s)")
 
+    lap("checkpoint")
     # ---- phase "async": the saved state through the synchronous mode and the frame loop ----
     detail_as, launches_async, err, async_modes = async_phase(ck["path"], slam4, rv5, seq_boot)
     max_err = max(max_err, err)
     ck_dir.cleanup()
     del res4, slam4, lp5
 
+    lap("async")
     # ---- phase 8: path 6, RGB-D from the clone's rendered depth, no IMU ----
     detail6, launches_rgbd, err = depth_phase(
         "path6", seq_boot, dataclasses.replace(p, n_frames=DEPTH_FRAMES), cam, dev)
     max_err = max(max_err, err)
 
+    lap("path 6")
     # ---- phase 9: path 7, rectified stereo + IMU, VI init at 5 s ----
     t0 = time.time()
-    right_imgs = render_right(seq_boot, p, range(DEPTH_FRAMES + 20))
+    right_imgs = render_right(seq_boot, p, range(STEREO_FRAMES))
 
     def right(i):
         if i not in right_imgs:
@@ -3098,24 +3118,32 @@ def main():
     detail7, launches_stereo, err = depth_phase("path7", seq_boot, p, cam, dev, right=right)
     max_err = max(max_err, err)
 
+    lap("path 7")
     # ---- phase "evict": capacity eviction of keyframes and points ----
     detail_ev, launches_evict, err = evict_phase(seq_boot, cam, dev)
     max_err = max(max_err, err)
 
+    lap("evict")
     # ---- phase "multiseq": 11 windows as one batched step ----
     detail_ms, rec_ms, err_ms = run_multiseq_phase(seq_boot, p, cam, ext, dev, kernel_ms,
                                                    bounds)
 
+    lap("multiseq")
     # ---- phase "multihost": the process-group Schur solve ----
     detail_mh = run_multihost_phase()
 
+    lap("multihost")
     # ---- phase "bench": tools/bench.py's workloads 1-5 and bench_scaling's part A ----
     detail_bench, launches_bench, launches_bench_b, err_bench = bench_phase(dev)
     max_err = max(max_err, err_bench)
 
+    lap("bench")
     # ---- the phase "async"'s device-busy windows, last: the profiler slows what follows ----
     async_profile_phase(async_modes, seq_boot, detail_as)
     del async_modes
+    lap("async profile")
+    _phase("time", ", ".join(f"{k} {v:.1f}" for k, v in laps.items())
+           + f" s; {time.time() - t_start:.1f} s in all")
 
     bound_ms, bound_by, bound_detail = bounds[15.0]
     launches_paths = (launches_loc + launches_map + launches_boot + launches_sys
@@ -3151,7 +3179,7 @@ def main():
               "plain_ms_by_radius": {f"{r:g}": plain_ms[r] for r in RADII},
               "bound_ms_by_radius": {f"{r:g}": bounds[r][0] for r in RADII},
               "bound_detail_r15": bound_detail,
-              "path1": {"frames": n_tracked, "launches": launches_loc,
+              "path1": {"frames": n_loc, "launches": launches_loc,
                         "frame_ms_median": float(np.median(ms)),
                         "frame_ms_p90": float(np.percentile(ms, 90)),
                         "kernel_share": k_ms / float(ms.sum()), "rmse_m": rmse_loc,
@@ -3168,7 +3196,7 @@ def main():
               "path7": detail7, "mesh": {"gba": mg, "posegraph": mp}, "checkpoint": ck,
               "async": detail_as, "evict": detail_ev,
               "multiseq": detail_ms, "multihost": detail_mh, "bench": detail_bench,
-              "seconds": time.time() - t_start}
+              "phase_seconds": laps, "seconds": time.time() - t_start}
     print(json.dumps(detail, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)),
           flush=True)
     print(json.dumps(record), flush=True)

@@ -37,7 +37,11 @@ initialized and tracking is OK, on every frame inside `--drift-window` (s,
 from the first such frame) everything created after the first injected
 frame (keyframes and points) and the tracker's last state and prior are
 moved by one small gravity-preserving step (`--drift-step`: translation and
-yaw a frame), on the device (`inject_drift`). The JAX artifact's demo ran
+yaw a frame), on the device (`inject_drift`). It runs after every `track`
+call in both modes; in the frame loop it moves the optimistic tracking
+state and reads the state as the loop has it then, and the frames in flight
+keep the poses they were dispatched with, as in the JAX script (whose
+artifact ran in its loop at LAG_MAX 12 / PAIR 2). The JAX artifact's demo ran
 `--drift-window 20 50 --drift-step 0.0008 -0.0005 0.0005 0.0004`. `--gate` exits 1
 when the result breaks the JAX script's acceptance rules (`gate`).
 
@@ -65,7 +69,8 @@ one host read an event). Where no PNG codec is installed
 (neither PIL nor imageio) the frames are rendered straight into the run and
 nothing is written. Needs a GPU unless `--device cpu` is given.
 MC_SLAM_LAG_MAX / MC_SLAM_PAIR select the frame loop (pipeline/system.py);
-the result's `lag_max` / `pair` say which mode ran.
+the result's `lag_max` / `pair` say which mode ran. The loop is flushed
+after the last frame, before anything is counted.
 """
 from __future__ import annotations
 
@@ -168,7 +173,11 @@ class DriftInjector:
     """When to inject (the JAX script's `maybe_inject`): VI initialized and
     tracking OK, inside [window[0], window[1]] s from the first such frame;
     the cutoff is the frame id of the first injected frame. `t_start` and
-    `cutoff` are the state a run across calls carries."""
+    `cutoff` are the state a run across calls carries. Called after each
+    `track`; in the frame loop the state it reads and moves is the loop's
+    at that moment (the tracker's optimistic NavState and prior), and the
+    entries in flight and the pair buffer are left as they were
+    dispatched."""
 
     def __init__(self, window, step, device, t_start=None, cutoff=None):
         self.window = tuple(float(w) for w in window)
@@ -635,9 +644,6 @@ def main(argv=None):
     cfg = profile_config(args.profile)
     slam = SlamSystem(euroc_camera(device=dev), cfg, Tbc=TBC, device=dev)
     slam.enable_loop_closing = not args.no_loops
-    if args.inject_drift and slam.async_loop:
-        raise SystemExit("eval_clone: --inject-drift runs in the synchronous mode "
-                         "(unset MC_SLAM_LAG_MAX / MC_SLAM_PAIR)")
 
     n_all = int(args.duration * args.fps)
     # a run that spans calls: frame numbers count from the clone's first frame
@@ -728,6 +734,7 @@ def main(argv=None):
             pending = (t_frame, buf, rows)
         if pending is not None:
             run_frame(pending)
+        slam.flush()                # the frames still in flight in the loop decided
     frames.close()
     t_run = time.time() - t0
 

@@ -47,13 +47,14 @@ from mc_slam_tpu.pipeline.tracking_ctl import TrackingCtlMixin
 from mc_slam_tpu.solver import ba as jba
 from mc_slam_tpu_torch import camera as tcam, convert
 from mc_slam_tpu_torch.frontend import extractor, matching
-from mc_slam_tpu_torch.imu.preintegration import euroc_noise
+from mc_slam_tpu_torch.eval.ate import ate_rmse
+from mc_slam_tpu_torch.imu.preintegration import euroc_noise, preint_identity
 from mc_slam_tpu_torch.pipeline import (mapping as tmap, mapping_ctl, system, tracking_ctl,
                                         viinit_ctl)
 from mc_slam_tpu_torch.slam_map.mapstate import empty_map
 
 from torch_port_helpers import (BOOT, assert_maps_match, boot_run, jax_cam, jax_map,
-                                jax_samples)
+                                jax_samples, jax_system_from_port)
 
 torch.set_num_threads(2)
 i32 = lambda v: jnp.asarray(v, jnp.int32)
@@ -373,3 +374,95 @@ def test_bootstrap_run_passes_its_own_checks():
     assert len(cap["events"]) == len(res["events"]) == len(res["st"].kf_slots) - 2
     for e in res["events"]:
         assert e["cost"] <= e["cost0"] and e["overflow"] == 0 and e["syncs"] == 0
+
+
+# ---------------------------------------------------------------------------
+# F22: the whole-map VI BA at VI init on the two layouts of the first IMU span
+# ---------------------------------------------------------------------------
+
+def _gba_vi_input(monkeypatch):
+    """The port's VI-init attempt on boot_run()'s state, replayed: the
+    MapState, MappingState and gravity handed to its whole-map VI BA (stage
+    "gba_vi", right after `vi_apply`), and the attempt's resulting map."""
+    seq, cam, ext, res, cap = boot_run()
+    tm, st, t, _ = cap["vi_attempts"][0]
+    cfg, noise = _cfg(), euroc_noise(device="cpu")
+    seen, orig = [], mapping_ctl.local_ba
+
+    def spy(m, st_, cfg_, cam_, ext_, gw, noise_, **kw):
+        if st_.vi_inited:
+            seen.append((m, copy.deepcopy(st_), gw))
+        return orig(m, st_, cfg_, cam_, ext_, gw, noise_, **kw)
+    monkeypatch.setattr(mapping_ctl, "local_ba", spy)
+    m2, att = viinit_ctl.maybe_vi_init(tm, copy.deepcopy(st), cfg, t, cam, ext,
+                                       torch.tensor([0.0, 0.0, -cfg.g_mag]), noise)
+    monkeypatch.setattr(mapping_ctl, "local_ba", orig)
+    assert att.accepted and len(seen) == 1
+    return seen[0] + (m2,)
+
+
+def _jax_gba_vi(monkeypatch, m, st, gw):
+    """The JAX package's whole-map VI BA (`_local_ba(force_all=True)`, which
+    runs `ba_vi.vi_ba` over every keyframe) on the converted state; returns
+    its MapState."""
+    js = jax_system_from_port(monkeypatch, boot_run()[1], m, st)
+    assert js.vi_inited
+    js.gw = jnp.asarray(gw.numpy())
+    js._local_ba(force_all=True)
+    return _np(js.m)
+
+
+def _kf_scale(P, st, slots):
+    """The similarity scale of the keyframes' positions against ground truth."""
+    seq = boot_run()[0]
+    t = np.asarray([seq.times[st.kf_id_host[s]] for s in slots])
+    return ate_rmse(t, np.asarray(P)[slots], seq.times, seq.P, with_scale=True)["scale"]
+
+
+def test_vi_init_gba_scale_matches_jax_on_the_ports_layout(monkeypatch):
+    """F22 (a): on the port's layout (keyframe 1 holds the first IMU span),
+    the port's whole-map VI BA at VI init (`local_ba(force_all=True)`) and
+    the JAX `ba_vi.vi_ba` move the keyframes to the same similarity scale
+    against ground truth, to 1e-4. The newest keyframe is left out: the JAX
+    method writes a stale padded copy over it (F1)."""
+    m_in, st_in, gw, m_port = _gba_vi_input(monkeypatch)
+    jm = _jax_gba_vi(monkeypatch, m_in, st_in, gw)
+    real = list(st_in.kf_slots)[:-1]
+    s_in = _kf_scale(m_in.kf_ns.P.numpy(), st_in, real)
+    s_port = _kf_scale(m_port.kf_ns.P.numpy(), st_in, real)
+    s_jax = _kf_scale(jm.kf_ns.P, st_in, real)
+    assert abs(s_port - s_jax) < 1e-4, (s_in, s_port, s_jax)
+    assert abs(s_port - s_in) > 1e-4, (s_in, s_port)       # the BA moved the scale
+
+
+def test_vi_init_gba_refuses_every_step_on_the_jax_layout(monkeypatch):
+    """F22 (b): on the JAX layout (F16: keyframe 0 holds the first IMU rows,
+    so keyframe 1's preintegration is empty, dT = 0, and its bias random-walk
+    information 1/dT is infinite) the port's whole-map VI BA refuses every
+    step, as the JAX one does: the map leaves it as `vi_apply` left it, with
+    no NaN written (F13: NaN where a factorization fails, never a raise).
+    Exact but for the rotations, which both packages hand back
+    re-orthonormalized: within 2.4e-7 (two float32 ulps of 1)."""
+    m_in, st_in, gw, _ = _gba_vi_input(monkeypatch)
+    act = list(st_in.kf_slots)
+    k1 = torch.tensor([act[1]])
+    empty = preint_identity(device="cpu")
+    m_j = m_in._replace(kf_preint=type(m_in.kf_preint)(
+        *[a.index_copy(0, k1, b[None]) for a, b in zip(m_in.kf_preint, empty)]))
+    st_j = copy.deepcopy(st_in)
+    st_j.kf_imu_raw[act[0]] = st_j.kf_imu_raw.pop(act[1])
+    assert float(m_j.kf_preint.dT[act[1]]) == 0.0 and float(m_in.kf_preint.dT[act[1]]) > 0
+    m_out, stats = mapping_ctl.local_ba(m_j, st_j, _cfg(), boot_run()[1], boot_run()[2], gw,
+                                        euroc_noise(device="cpu"), force_all=True)
+    assert not torch.isfinite(stats.costs).any()              # NaN from the start: all refused
+    jm = _jax_gba_vi(monkeypatch, m_j, st_j, gw)                 # the JAX method, same state
+    for f, a, b in zip(m_j.kf_ns._fields, m_out.kf_ns, m_j.kf_ns):
+        assert torch.isfinite(a[act]).all(), f
+        for got in (a.numpy()[act], getattr(jm.kf_ns, f)[act]):
+            if f == "R":
+                np.testing.assert_allclose(got, b.numpy()[act], rtol=0, atol=2.4e-7)
+            else:
+                np.testing.assert_array_equal(got, b.numpy()[act], err_msg=f)
+    for got in (m_out.mp_pos.numpy(), jm.mp_pos):
+        np.testing.assert_array_equal(got, m_j.mp_pos.numpy())
+    assert torch.isfinite(m_out.mp_pos[m_out.mp_active]).all()

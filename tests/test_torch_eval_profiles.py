@@ -157,12 +157,42 @@ def test_inject_drift_matches_numpy_transcription(cutoff):
     assert eval_clone.inject_drift(m, ns_last, None, Rg, tg, cutoff)[2] is None
 
 
-def test_drift_state_survives_a_save_and_resume(tmp_path, monkeypatch):
+def test_jax_drift_injector_is_the_scripts_text():
+    """torch_port_helpers.jax_drift_injector, the JAX side of the injection
+    parity test under the frame loop (tests/test_torch_frameloop.py): its
+    `_inject` and `maybe_inject` are the script's, node for node, and its
+    step rotation is the script's `so3_exp` of [0, 0, yaw] to 2e-7."""
+    import jax.numpy as jnp
+    from mc_slam_tpu import lie as jlie
+    from torch_port_helpers import jax_drift_rotation
+
+    def fn(body, name):
+        return next(n for n in body if isinstance(n, ast.FunctionDef) and n.name == name)
+    main = fn(ast.parse(JAX_SCRIPT.read_text()).body, "main")
+    helper = fn(ast.parse((ROOT / "tests" / "torch_port_helpers.py").read_text()).body,
+                "jax_drift_injector")
+    for name in ("_inject", "maybe_inject"):
+        assert ast.dump(fn(helper.body, name)) == ast.dump(fn(main.body, name)), name
+    for yaw in (4e-4, -1.5e-4):
+        ref = np.asarray(jlie.so3_exp(jnp.asarray([0.0, 0.0, np.float32(yaw)])), np.float32)
+        np.testing.assert_allclose(np.asarray(jax_drift_rotation(yaw)), ref, rtol=0, atol=2e-7)
+
+
+@pytest.mark.parametrize("loop", [False, True], ids=["synchronous", "frame_loop"])
+def test_drift_state_survives_a_save_and_resume(tmp_path, monkeypatch, loop):
     """--inject-drift across two calls: the first injected frame's time and
     the cutoff go into PATH.run.json and the resumed call carries on from
-    them. The injector is stood in for by one that starts on the first frame
-    (this short run reaches no VI init) and moves nothing."""
+    them, in the synchronous mode and in the frame loop at LAG_MAX 12 /
+    PAIR 2 (the save flushes the loop; the injector runs after every call
+    there too). The injector is stood in for by one that starts on the first
+    frame (this short run reaches no VI init) and moves nothing."""
     torch.set_num_threads(2)
+    if loop:
+        monkeypatch.setenv("MC_SLAM_LAG_MAX", "12")
+        monkeypatch.setenv("MC_SLAM_PAIR", "2")
+    else:
+        monkeypatch.delenv("MC_SLAM_LAG_MAX", raising=False)
+        monkeypatch.delenv("MC_SLAM_PAIR", raising=False)
     seen = []
 
     def start(self, slam, t):
@@ -194,6 +224,10 @@ def test_drift_state_survives_a_save_and_resume(tmp_path, monkeypatch):
     assert r1["frames"] == d["n_injected"] == 11 and d["cutoff"] == 0
     assert r2["frames"] == 15 and p["frames_injected"] == 15
     assert r2["drift_injected"] and r2["profile"] == "small" and len(r2["calls"]) == 2
+    assert (r1["lag_max"], r1["pair"], r2["lag_max"], r2["pair"]) == ((12, 2) * 2 if loop
+                                                                      else (1, 1) * 2)
+    # the resumed call's first frame went out through the loop and was harvested
+    assert ("harvest_pull" in r2["stage_detail"]) == loop
     assert r2["evictions"] == dict(keyframes=0, keyframes_after_vi=0, point_passes=0, points=0)
     assert (tmp_path / "map_clone_b.png").exists()
     z = np.load(tmp_path / "traj_clone_b.npz")

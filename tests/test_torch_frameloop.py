@@ -33,6 +33,7 @@ import collections
 import copy
 import dataclasses
 import functools
+import types
 from pathlib import Path
 
 import jax
@@ -54,10 +55,11 @@ from mc_slam_tpu_torch.pipeline import frameloop, loopctl, tracking, tracking_ct
 from mc_slam_tpu_torch.pipeline.pipebase import LOST, OK
 from mc_slam_tpu_torch.pipeline.system import SlamConfig, SlamSystem
 from mc_slam_tpu_torch.solver import ba_vi
+from mc_slam_tpu_torch.tools import eval_clone
 
 from torch_port_helpers import (BOOT, REVISIT_FRAMES, REVISIT_SRC, boot_run, jax_cam,
-                                jax_ext, jax_features, jax_map, jax_system_from_port,
-                                revisit_run)
+                                jax_drift_injector, jax_ext, jax_features, jax_map,
+                                jax_system_from_port, revisit_run)
 
 torch.set_num_threads(2)
 DIGEST = Path(__file__).with_name("torch_sync_digest.npz")
@@ -270,6 +272,49 @@ def test_loop_matches_jax_loop(monkeypatch, ready):
     _assert_states_match(js, slam, n_ev)
     np.testing.assert_allclose(slam.last_pose[0].numpy(), np.asarray(js.last_pose[0]),
                                rtol=0, atol=POS_TOL)
+    assert slam.state == js.state == OK
+
+
+@pytest.mark.parametrize("ready", [False, True], ids=["at_depth_limit", "lag_one"])
+def test_injection_under_the_loop_matches_jax(monkeypatch, ready):
+    """tools/eval_clone.py's drift injection after every `track` call of the
+    frame loop (PAIR 2, LAG_MAX 3, 10 frames, then flush()) against the JAX
+    loop with examples/eval_clone.py's `maybe_inject`
+    (`torch_port_helpers.jax_drift_injector`): the injection starts on the
+    first frame (cutoff: its frame id) and moves the map past the cutoff and
+    the optimistic tracking state, never the entries in flight, so the
+    keyframes decided at harvest carry the poses of their dispatch. The
+    same keyframes, losses, trajectory and tables as the JAX loop's, to
+    `_assert_states_match`'s tolerances."""
+    slam = _port(3, 2, ready)
+    js = _jax_twin(monkeypatch, slam, 3, 2, ready)
+    args = types.SimpleNamespace(inject_drift=True, drift_window=[0.0, 10.0],
+                                 drift_step=[0.0008, -0.0005, 0.0005, 0.0004])
+    inject = eval_clone.DriftInjector(args.drift_window, args.drift_step, "cpu")
+    jinject, jdrift = jax_drift_injector(args, js)
+    n_ev = len(slam.events)
+    seq = long_seq()
+    with jax_features():
+        for i in range(FIRST, FIRST + 10):
+            for s in (js, slam):
+                s.track(seq.imgs[i], float(seq.times[i]), seq.imu[i])
+            jinject(float(seq.times[i]))
+            assert inject(slam, float(seq.times[i]))
+        js.flush()
+        slam.flush()
+    assert inject.n_injected == 10 and not slam.fl.pendings and not js._pendings
+    assert (inject.t_start, inject.cutoff) == (jdrift["t_start"], jdrift["cutoff"])
+    assert inject.cutoff == boot_run()[3]["last_frame"] + 1          # the first fed frame
+    # keyframes of the injected span, decided at harvest, were moved by the later steps
+    assert [k for k in _kf_ids(slam, slam.st) if k > inject.cutoff]
+    _assert_states_match(js, slam, n_ev)
+    # the optimistic state, and the prior where the last keyframe's reseat left one
+    pairs = [(slam.ts.ns.P, js.last_ns.P), (slam.ts.ns.R, js.last_ns.R)]
+    assert (slam.ts.prior is None) == (js.prior is None)
+    if js.prior is not None:
+        pairs.append((slam.ts.prior.ns0.P, js.prior.ns0.P))
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=POS_TOL)
     assert slam.state == js.state == OK
 
 

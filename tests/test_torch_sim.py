@@ -2,7 +2,10 @@
 textures and trajectory; rendered grey levels within one level where the
 ray undistortion (float32, 20 fixed-point iterations) rounds differently;
 IMU body rates within 1e-5 rad/s (a float32 so3_log of a 2e-4 s rotation,
-divided by 2e-4)."""
+divided by 2e-4). And chip_smoke.py's right images against a serial render,
+bit for bit."""
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -67,3 +70,29 @@ def test_trajectory_and_imu():
     assert rj.shape == rt.shape == (20, 7)
     np.testing.assert_allclose(rj[:, 0:3], rt[:, 0:3], rtol=0, atol=1e-5)
     np.testing.assert_array_equal(rj[:, 3:], rt[:, 3:])
+
+
+def test_chip_smoke_right_images_equal_a_serial_render():
+    """chip_smoke.render_right (path 7's right images) gives, frame for frame,
+    the bytes of a serial render by one RoomWorld of the same seed, at the
+    card's 752x480 over 32 frames (texture 1024): when it rendered on 8
+    threads through one world, 1 to 4 such frames came out with patches of
+    wrong pixels in 2 of 3 runs of this test (numpy's OpenBLAS called from
+    several threads at once)."""
+    import chip_smoke
+    p = dataclasses.replace(chip_smoke.EUROC, tex_size=1024)
+    n = 32
+    traj = TTraj(duration=120.0)
+    P, R = (np.asarray(a) for a in zip(*[traj.pose(i / p.fps) for i in range(n)]))
+    seq = chip_smoke.Sequence([], [], P, R, None, [], np.arange(n) / p.fps)
+    got = chip_smoke.render_right(seq, p, range(n))
+    assert sorted(got) == list(range(n))
+    world = TRoom(np.random.default_rng(0), tex_size=p.tex_size, tex_scale=1.0)
+    cam = chip_smoke.profile_camera(p, "cpu")
+    Rbc, pbc = chip_smoke.TBC[:3, :3], chip_smoke.TBC[:3, 3]
+    right = np.array([chip_smoke.system.SlamConfig().stereo_baseline, 0.0, 0.0])
+    for i in range(n):
+        Rwc = R[i] @ Rbc
+        ref = world.render(cam, Rwc, P[i] + R[i] @ pbc + Rwc @ right)
+        assert got[i].dtype == np.uint8 and got[i].shape == (p.height, p.width)
+        np.testing.assert_array_equal(got[i], ref, err_msg=f"frame {i}")

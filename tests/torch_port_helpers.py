@@ -215,6 +215,69 @@ def revisit_run():
     return seq, cam, ext, slam, rv, cap
 
 
+def jax_drift_rotation(yaw):
+    """The rotation of one drift step, yaw about the world's z axis, in
+    float32: the script builds it with the JAX `lie.so3_exp`
+    (examples/eval_clone.py:194-195), which tests/test_torch_eval_profiles.py
+    compares with this."""
+    c, s = np.cos(np.float32(yaw)), np.sin(np.float32(yaw))
+    return jnp.asarray([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]], jnp.float32)
+
+
+def jax_drift_injector(args, slam):
+    """The JAX script's drift injection (examples/eval_clone.py:168-214): its
+    `_inject` and `maybe_inject` are closures inside its main() and cannot be
+    imported, so they are transcribed here word for word
+    (tests/test_torch_eval_profiles.py holds both to the script's text), with
+    the step's rotation from `jax_drift_rotation`. args: `inject_drift`,
+    `drift_window`, `drift_step`; slam: a JAX SlamSystem. Returns
+    (maybe_inject, drift_state); call maybe_inject(t) after each
+    `slam.track`, as the script does."""
+    _jax, _jnp = jax, jnp
+
+    @_jax.jit
+    def _inject(m, ns_last, Rg, tg, cutoff):
+        kf_sel = m.kf_active & (m.kf_id > cutoff)
+        ns = m.kf_ns
+        P2 = _jnp.where(kf_sel[:, None], ns.P @ Rg.T + tg, ns.P)
+        R2 = _jnp.where(kf_sel[:, None, None],
+                        _jnp.einsum("ij,kjl->kil", Rg, ns.R), ns.R)
+        V2 = _jnp.where(kf_sel[:, None], ns.V @ Rg.T, ns.V)
+        mp_sel = m.mp_active & (m.mp_first_kf > cutoff)
+        X2 = _jnp.where(mp_sel[:, None], m.mp_pos @ Rg.T + tg, m.mp_pos)
+        N2 = _jnp.where(mp_sel[:, None], m.mp_normal @ Rg.T, m.mp_normal)
+        m2 = m._replace(kf_ns=ns._replace(P=P2, R=R2, V=V2),
+                        mp_pos=X2, mp_normal=N2)
+        ns2 = ns_last._replace(P=Rg @ ns_last.P + tg, R=Rg @ ns_last.R,
+                               V=Rg @ ns_last.V)
+        return m2, ns2
+
+    drift_state = {"cutoff": None, "t_start": None}
+    _dstep = np.asarray(args.drift_step, np.float32)
+    _Rg = jax_drift_rotation(_dstep[3])
+    _tg = _jnp.asarray(_dstep[:3])
+
+    def maybe_inject(t_frame):
+        if not args.inject_drift or not slam.vi_inited or slam.state != 2:
+            return
+        if drift_state["t_start"] is None:
+            drift_state["t_start"] = t_frame
+        rel = t_frame - drift_state["t_start"]
+        if not (args.drift_window[0] <= rel <= args.drift_window[1]):
+            return
+        if drift_state["cutoff"] is None:
+            drift_state["cutoff"] = slam.frame_id - 1
+        cut = jnp.asarray(drift_state["cutoff"], jnp.int32)
+        slam.m, slam.last_ns = _inject(slam.m, slam.last_ns, _Rg, _tg, cut)
+        slam.last_pose = (slam.last_ns.P, slam.last_ns.R)
+        if slam.prior is not None:
+            ns0 = slam.prior.ns0
+            slam.prior = slam.prior._replace(ns0=ns0._replace(
+                P=_Rg @ ns0.P + _tg, R=_Rg @ ns0.R, V=_Rg @ ns0.V))
+
+    return maybe_inject, drift_state
+
+
 @contextlib.contextmanager
 def jax_features():
     """While active, the port's ORB extraction hands out the JAX package's
