@@ -109,7 +109,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     chain, histogram ids): `io.checkpoint.save_system` to a temporary
     directory, `load_system` into a fresh `SlamSystem` on the card; every
     MapState table bit-equal, the host state and the trajectory equal; then
-    the resumed system tracks the 20 clone frames after the replayed stretch
+    the resumed system tracks the 5 clone frames after the replayed stretch
     (the first carries the IMU rows since the keyframe it resumed at). Fails
     on any difference, a lost frame, no kernel launch, or an ATE over those
     frames of 5 cm or more; prints save / load ms and the bytes written;
@@ -125,7 +125,16 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     an ATE of 5 cm or more, B without a trajectory row per frame or with an
     entry pending after `flush()`, fewer than 10 pairs or no event harvested
     deferred, B more than 2 cm from A on a frame, or kernel != twin on the
-    searches of B's first pair;
+    searches of B's first pair. Then C, the path from the frame loop through
+    the synchronous relocalization and back (`run_transition`): the files
+    loaded into a third system at LAG_MAX 12 / PAIR 2 with every entry
+    harvested at the depth limit, a blank frame and 23 clone frames in
+    flight, LOST at the blank pair's harvest, relocalization on path 5's
+    first replayed frame, the 20-frame bias window and 2 x 12 pairs back in
+    the loop. Fails unless: one loss, one relocalization, a keyframe closing
+    the window and one decided at harvest after it, no frame lost after the
+    relocalization, nothing pending after `flush()`, and every one of C's
+    searches equal to the twin's;
 13. path 6, "euroc-rgbd": a new `SlamSystem` (IMU off, cull_min_obs 2, loop
     closing on) fed the first 120 clone frames with their rendered depth
     through `track(img, t, depth=)`: the map starts metric from frame 0's
@@ -231,7 +240,7 @@ from mc_slam_tpu_torch import lie as tlie
 from mc_slam_tpu_torch.pipeline import (loopclosing, loopctl, mapping, mapping_ctl, system,
                                         tracking, tracking_ctl)
 from mc_slam_tpu_torch.parallel import dist_ba
-from mc_slam_tpu_torch.pipeline.pipebase import LOST
+from mc_slam_tpu_torch.pipeline.pipebase import LOST, OK
 from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
 from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix, empty_map,
                                                  observation_counts)
@@ -1263,7 +1272,7 @@ MESH_DP_TOL = 1.5e-3        # m, sharded against unsharded keyframe positions: ~
 MESH_DCOST_TOL = 2e-5       # relative final cost, sharded against unsharded (~10 x 1.8e-6)
 MESH_MOVE_MIN = 2.5e-2      # m, the least keyframe move of the unsharded BA (~17 x MESH_DP_TOL)
 MESH_PG_TOL = 2e-3          # m, the sharded pose graph's keyframes (the loop event's parity)
-CKPT_FRAMES = 10            # clone frames the resumed system tracks
+CKPT_FRAMES = 5             # clone frames the resumed system tracks
 
 
 def two_shard_mesh(device, axis="mp"):
@@ -1597,6 +1606,111 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
                peak_device_MiB=peak_mb,
                pos={round(float(t), 6): np.asarray(P) for t, P, _ in traj},
                last_src=srcs[-1], last_t=times[-1])
+    return out, slam
+
+
+TRANSITION_PAIRS = 2 * ASYNC_LAG_MAX    # pairs the transition feeds after the bias window
+
+
+class TwinCheck:
+    """Stands in for match_cuda.hamming_top2_windowed during a run: every
+    call goes to the wrapper (the kernel on the card, counted there) and its
+    result is held at once against the plain twin on the same inputs (best
+    everywhere, second and idx where best < BIG); raises on a difference."""
+
+    def __init__(self):
+        self.n, self.max_err = 0, 0
+
+    def __call__(self, *args):
+        out = match_cuda._WRAPPER(*args)
+        err, _ = held_to_twin(out, args[1:5] + args[6:10], *args[10:])
+        self.max_err = max(self.max_err, err)
+        self.n += 1
+        return out
+
+
+def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, src_reloc: int,
+                   device, lag_max: int = ASYNC_LAG_MAX, pair: int = ASYNC_PAIR,
+                   n_pairs: int = TRANSITION_PAIRS):
+    """The phase "async"'s transition out of the frame loop and back: the
+    checkpoint at `path` loaded into a fresh system at LAG_MAX / PAIR whose
+    summaries are never ready (each entry harvested at the depth limit, as
+    the JAX package's TPU runs harvested; the rule set on this instance, as
+    the README's command line sets it); a blank frame, then the clone frames
+    `srcs` (times, rows) up to the call that harvests the blank's pair: LOST
+    there, and that call's frame is source frame `src_reloc`, the next ones
+    its successors until one relocalizes (at most RELOC_MAX_FRAMES); the bias
+    window's frames after it, then `n_pairs` pairs back in the loop; flush(). Every search is held against the twin (`TwinCheck`), the
+    kernel's launches counted from 0. Returns (dict, system); raises on the
+    gates: the blank's pair lost at its harvest, exactly one "lost" event and
+    one "reloc" event, the bias window closed by a keyframe, a keyframe
+    decided at harvest after it, no frame lost and nothing pending after
+    the loss."""
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+    slam = system.SlamSystem(cam, dataclasses.replace(cfg), Tbc=TBC, device=dev)
+    checkpoint.load_system(path, slam)
+    slam.event_kw = dict(event_kw)
+    slam.LAG_MAX, slam.PAIR = lag_max, pair
+    slam._summary_ready = lambda p: False
+    n_ev0 = len(slam.events)
+    fdt = float(seq.times[1] - seq.times[0])
+    blank = np.full_like(seq.imgs[srcs[0]], 40)
+    chk = TwinCheck()
+    orig = match_cuda.hamming_top2_windowed
+    match_cuda.hamming_top2_windowed = chk
+    hamming_top2_windowed.launches = 0
+    t0 = time.perf_counter()
+    try:
+        fid_blank, j = slam.frame_id, 0
+        while not (slam.fl.pendings and slam.fl.pendings[0].frames[0]["frame_id"] == fid_blank
+                   and len(slam.fl.pendings) >= slam.LAG_MAX):
+            slam.track(blank if j == 0 else seq.imgs[srcs[j]], times[j], rows[j])
+            j += 1
+        n_before, t = j, times[j - 1]
+        k, i_reloc, n_after = 0, None, slam.reloc_window + pair * n_pairs
+        while i_reloc is None or k <= i_reloc + n_after:
+            t += fdt
+            slam.track(seq.imgs[src_reloc + k], t, seq.imu[src_reloc + k])
+            if i_reloc is None and slam.reloc_buf is not None:
+                i_reloc, lost_after = k, slam.n_lost_frames
+            elif i_reloc is None and k + 1 >= RELOC_MAX_FRAMES:
+                raise AssertionError(f"transition: no relocalization within "
+                                     f"{RELOC_MAX_FRAMES} frames from source frame {src_reloc}")
+            k += 1
+        slam.flush()
+        if cuda:
+            torch.cuda.synchronize()
+    finally:
+        match_cuda.hamming_top2_windowed = orig
+    wall = time.perf_counter() - t0
+    launches = hamming_top2_windowed.launches
+    ev = [e for e in slam.events[n_ev0:] if e[1] != "kf_culled"]
+    # the loss of the blank's pair (not the failed relocalization attempts after it)
+    lost = [e for e in ev if e[1] == "lost" and e[2].get("mode") != "lost"]
+    reloc = [e for e in ev if e[1] == "reloc"]
+    ids = sorted(slam.st.kf_id_host[s] for s in slam.st.kf_slots)
+    closing = reloc[0][0] + slam.reloc_window if len(reloc) == 1 else None
+    out = dict(frames_before=n_before, reloc_attempts=i_reloc + 1, frames_after=k,
+               lost_events=len(lost), lost_mode=lost[0][2].get("mode") if lost else None,
+               lost_frames=slam.n_lost_frames, lost_after_reloc=slam.n_lost_frames - lost_after,
+               reloc=reloc[0][2] if reloc else None, reloc_frame=reloc[0][0] if reloc else None,
+               closing_kf=closing, closing_is_kf=closing in ids,
+               kf_after=[f for f in ids if closing is not None and f > closing],
+               epoch=slam.fl.map_epoch, pending_after_flush=len(slam.fl.pendings),
+               dispatched=dict(slam.fl.n_dispatched), launches=launches,
+               twin_checked=chk.n, twin_max_err=chk.max_err, wall_s=wall)
+    if len(lost) != 1 or out["lost_mode"] != "vi2" or len(reloc) != 1:
+        raise AssertionError(f"transition: {len(lost)} lost events ({out['lost_mode']}), "
+                             f"{len(reloc)} relocalizations: {[e[:2] for e in ev]}")
+    if not out["closing_is_kf"] or not out["kf_after"]:
+        raise AssertionError(f"transition: keyframes {ids}; the window closes at {closing}")
+    if out["lost_after_reloc"] or out["pending_after_flush"] or slam.state != OK:
+        raise AssertionError(f"transition: {out['lost_after_reloc']} frames lost after the "
+                             f"relocalization, {out['pending_after_flush']} pending, state "
+                             f"{slam.state}")
+    if chk.n == 0 or (cuda and chk.n != launches):
+        raise AssertionError(f"transition: {launches} launches, {chk.n} held to the twin")
     return out, slam
 
 
@@ -2219,10 +2333,18 @@ def compare_kernel(inp, radius, level_tol=1):
                               level_tol)
     if inp["a_desc"].is_cuda:
         torch.cuda.synchronize()
-    r = hamming_top2_windowed_ref(inp["a_pm1"], inp["a_uv"], inp["a_lvl"],
-                                  inp["a_valid"], inp["b_pm1"], inp["b_uv"],
-                                  inp["b_lvl"], inp["b_valid"], radius, level_tol)
-    best, second, idx = (t.cpu().numpy().astype(np.int64) for t in k)
+    return held_to_twin(k, (inp["a_pm1"], inp["a_uv"], inp["a_lvl"], inp["a_valid"],
+                            inp["b_pm1"], inp["b_uv"], inp["b_lvl"], inp["b_valid"]),
+                        radius, level_tol)
+
+
+def held_to_twin(out, twin_args, radius, level_tol=1):
+    """The kernel's (best, second, idx) against the twin's on the twin's
+    inputs (a_pm1, a_uv, a_lvl, a_valid, b_pm1, b_uv, b_lvl, b_valid): `best`
+    equal everywhere, `idx` and `second` where best < BIG; raises on a
+    difference. Returns (max_abs_err, n_rows_with_a_match)."""
+    r = hamming_top2_windowed_ref(*twin_args, radius, level_tol)
+    best, second, idx = (t.cpu().numpy().astype(np.int64) for t in out)
     rbest, rsecond, ridx = (t.cpu().numpy().astype(np.int64) for t in r)
     has = rbest < BIG
     err = max(np.abs(best - rbest).max(initial=0),
@@ -2850,9 +2972,35 @@ def async_phase(path, slam, rv, seq: Sequence):
                     f"frame (< {ASYNC_POS_TOL * 1e3:.0f}); B is {a['wall_s'] / b['wall_s']:.3f} x "
                     f"A's frame rate; kernel == twin on the {n_real} real searches of B's first "
                     f"pair ({time.time() - t0:.1f} s)")
+    c = transition_phase(path, slam, rv, seq)
     strip = lambda r: {k: v for k, v in r.items() if k != "pos"}
-    return ({"A": strip(a), "B": strip(b)}, (a["launches"], b["launches"]), err,
+    return ({"A": strip(a), "B": strip(b), "C": c}, (a["launches"], b["launches"],
+                                                    c["launches"]), max(err, c["twin_max_err"]),
             [(a, sys_a), (b, sys_b)])
+
+
+def transition_phase(path, slam, rv, seq: Sequence):
+    """The phase "async"'s mode C (`run_transition`) on the card: the
+    checkpoint of path 5's system, a blank frame at the first frame after path
+    5's, LOST at depth 12, relocalization on path 5's first replayed frame, the
+    bias window and 2 x 12 pairs back in the loop. Returns its dict."""
+    t0 = time.time()
+    _, srcs, times, rows = resume_feed(slam.st, rv, seq, REVISIT_SRC + REVISIT_FRAMES,
+                                       2 * ASYNC_LAG_MAX)
+    c, _ = run_transition(path, slam.cam, slam.cfg, slam.event_kw, seq, srcs, times, rows,
+                          REVISIT_SRC, slam.device)
+    _phase("async", f"C (LAG_MAX {ASYNC_LAG_MAX}, PAIR {ASYNC_PAIR}, harvest at the depth "
+                    f"limit): a blank frame and {c['frames_before'] - 1} more in flight, the "
+                    f"blank's pair LOST at its harvest ({c['lost_frames']} frames); relocalized "
+                    f"on source frame {REVISIT_SRC + c['reloc_attempts'] - 1} "
+                    f"({c['reloc_attempts']} attempt(s), keyframe {c['reloc']['kf']}, "
+                    f"{c['reloc']['n_in']} inliers); the bias window closed by keyframe "
+                    f"{c['closing_kf']}; {TRANSITION_PAIRS} pairs back in the loop, keyframes "
+                    f"decided at harvest {c['kf_after']}; 0 frames lost after the "
+                    f"relocalization, 0 pending after flush(); map epoch {c['epoch']}; "
+                    f"dispatched {c['dispatched']}; matcher launches {c['launches']}, each "
+                    f"== twin ({c['twin_checked']} searches) ({time.time() - t0:.1f} s)")
+    return c
 
 
 def async_profile_phase(modes, seq: Sequence, detail):
@@ -3152,7 +3300,7 @@ def main():
                        f"{launches_map} + {launches_boot} + {launches_sys} + {launches_rev} + "
                        f"{launches_ckpt} + {launches_rgbd} + {launches_stereo} = "
                        f"{launches_paths}; phase \"async\": {launches_async[0]} + "
-                       f"{launches_async[1]}; phase \"evict\" (N = {EVICT.n_feat}): "
+                       f"{launches_async[1]} + {launches_async[2]} (A, B, C); phase \"evict\" (N = {EVICT.n_feat}): "
                        f"{launches_evict}; phase \"multiseq\": {rec_ms['launches']}; phase "
                        f"\"bench\": {launches_bench} (frame steps) + {launches_bench_b} "
                        f"(batched steps)")

@@ -410,6 +410,20 @@ def _try_close_loop(sys, slot, handles):
                                         sys.frame_id, sys.cam, sys.ext, handles=handles)
 
 
+def close_loop_now(sys, slot):
+    """JAX `_try_close_loop(slot)` with no handles (loopctl.py:42-118), the
+    attempt of a keyframe decided off the steady state: the stages of an
+    earlier attempt finished first, then a detection of its own, the Sim3
+    batch and the verifications, all in this call (`loopctl.try_close_loop`,
+    which re-seats tracking on a closure). Returns its LoopOutcome or None."""
+    _harvest_sim3(sys, force=True)
+    while sys.fl.verify is not None:
+        _harvest_verify(sys, force=True)
+    sys.m, out = loopctl.try_close_loop(sys.m, sys.st, sys.cfg, sys.ts, sys._loopctx, slot,
+                                        sys.frame_id, sys.cam, sys.ext, sys.noise)
+    return out
+
+
 def _harvest_sim3(sys, force=False):
     fl = sys.fl
     p = fl.sim3

@@ -16,7 +16,9 @@ package's variables; attributes `LAG_MAX`, `PAIR`):
   dispatch; the keyframe event's host half and the loop-closing stages are
   harvested when their copies land. Off the steady state (not OK, a depth
   frame, the relocalization window) every entry is drained first and the
-  frame takes the synchronous path. `flush()` (and `get_trajectory`,
+  frame takes the synchronous path; after a relocalization a keyframe's
+  event there is dispatched as the loop's are, its host half left to the
+  loop's harvest (the JAX `_track_sync`). `flush()` (and `get_trajectory`,
   `global_refine`, `set_localization_mode`, `io.checkpoint.save_system`)
   drains.
 
@@ -671,41 +673,87 @@ class SlamSystem:
     def _after_sync_frame(self, feats, uv, t, feat_mp, n_in, mode, used_fb=False, fd=None):
         """The tail of a frame tracked off the steady state (relocalized, or
         inside the bias window): its trajectory row and the keyframe decision
-        (-> event -> loop closing); never a keyframe while the window is open."""
-        st, ts = self.st, self.ts
-        anchor = st.last_kf_slot
-        ts.traj.append(tracking._traj_row(self.m, ts.P, ts.R, anchor), t, anchor,
-                       st.kf_id_host.get(anchor, -1))
-        self.m, slot, event, closed = tracking_ctl._keyframe_tail(
-            self.m, st, self.cfg, ts, feats, uv, t, self.frame_id, feat_mp, n_in, self.cam,
-            self.ext, self.noise, self._marks("lm_", self.event_probe),
-            not self.localization_only, self.event_kw, self._loopctx, fd)
+        (-> event -> loop closing); never a keyframe while the window is open.
+        In the frame loop the keyframe takes `_sync_keyframe_in_loop`, and the
+        row is written last, as the JAX `_track_sync` writes it
+        (mc_slam_tpu/pipeline/system.py:374-382)."""
+        st, ts, in_loop = self.st, self.ts, self.async_loop
+        event = None
+        if in_loop:
+            slot, closed = self._sync_keyframe_in_loop(feats, uv, t, feat_mp, n_in, fd)
+        else:
+            self._row_now(t)
+            self.m, slot, event, closed = tracking_ctl._keyframe_tail(
+                self.m, st, self.cfg, ts, feats, uv, t, self.frame_id, feat_mp, n_in, self.cam,
+                self.ext, self.noise, self._marks("lm_", self.event_probe),
+                not self.localization_only, self.event_kw, self._loopctx, fd)
         self.m, vi = tracking_ctl.vi_init_tail(
             self.m, st, self.cfg, ts, t, self.cam, self.ext, self.noise,
             self._marks("vi_", self.vi_probe), self.viinit_log)
+        if in_loop:
+            if vi is not None and vi.accepted:
+                frameloop.invalidate(self)
+            self._row_now(t)
         self.last_outcome = tracking_ctl.FrameOutcome(OK, n_in, used_fb, slot, event, vi,
                                                       loop=closed, mode=mode)
         self._note_event(self.last_outcome)
 
+    def _row_now(self, t):
+        """The trajectory row of the tracking state as it stands."""
+        st, ts = self.st, self.ts
+        anchor = st.last_kf_slot
+        ts.traj.append(tracking._traj_row(self.m, ts.P, ts.R, anchor), t, anchor,
+                       st.kf_id_host.get(anchor, -1))
+
+    def _sync_keyframe_in_loop(self, feats, uv, t, feat_mp, n_in, fd=None):
+        """The keyframe decision of a frame off the steady state while the
+        frame loop is on, as the JAX `_track_sync` takes it
+        (mc_slam_tpu/pipeline/system.py:365-373): the event dispatched with its
+        host half left to the loop's harvest (`frameloop._local_mapping`), a
+        loop-closing attempt with a detection of its own finished in this call
+        (`frameloop.close_loop_now`), then the caches dropped and the map
+        epoch bumped. Returns (slot or None, LoopOutcome or None)."""
+        st, ts, cfg = self.st, self.ts, self.cfg
+        if self.localization_only or not tracking_ctl.need_new_kf(
+                self.m, st, cfg, self.frame_id, n_in, ts.reloc_buf is not None):
+            return None, None
+        with self.timers.stage("local_mapping"):
+            self.m, slot = tracking_ctl.create_keyframe(
+                self.m, st, cfg, ts, feats, uv, t, self.frame_id, feat_mp, self.noise,
+                detector=self.loop, ur=None if fd is None else fd.ur)
+            if fd is not None:
+                self.m = mapping_ctl.add_depth_points(self.m, cfg, self.cam, self.ext, slot,
+                                                      feats, uv, fd.depth, self.frame_id)
+            frameloop._local_mapping(self)
+        with self.timers.stage("loop_closing"):
+            closed = frameloop.close_loop_now(self, slot)
+        frameloop.invalidate(self)
+        return slot, closed
+
     def _relocalize(self, feats, uv, t, fd=None):
         """One relocalization attempt on this frame's features (the refinement
         is monocular, as the JAX package's; a depth frame's u_right rows join
-        at its keyframe decision)."""
+        at its keyframe decision). A success bumps the map epoch
+        (mc_slam_tpu/pipeline/system.py:354-356)."""
         with self.timers.stage("relocalize"):
             hit = tracking_ctl.relocalize(self.m, self.st, self.cfg, self.ts, self.loop, feats,
                                           uv, t, self.cam, self.ext, generator=self._gen)
         if hit is None:
             return False
         self.state = OK
+        frameloop.invalidate(self)
         self.events.append((self.frame_id, "reloc", dict(kf=hit["kf"], n_in=hit["n_in"])))
         self._after_sync_frame(feats, uv, t, hit["feat_mp"], hit["n_in"], "reloc", fd=fd)
         return True
 
     def _track_reloc_window(self, feats, uv, t, fd=None):
-        """One frame of the bias window after a relocalization."""
+        """One frame of the bias window after a relocalization; its last frame
+        bumps the map epoch (mc_slam_tpu/pipeline/tracking_ctl.py:241-244)."""
         ok, n_in, used_fb = tracking_ctl.track_frame_reloc_window(
             self.m, self.st, self.cfg, self.ts, feats, uv, t, self.cam, self.ext, self.noise,
             reloc_window=self.reloc_window, depth=fd)
+        if ok and self.ts.reloc_buf is None:
+            frameloop.invalidate(self)
         if not ok:
             self.state = LOST
             self.last_outcome = tracking_ctl.FrameOutcome(LOST, n_in, used_fb, None, None, None,

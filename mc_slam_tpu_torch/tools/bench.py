@@ -417,9 +417,10 @@ def end_to_end(frames, device, sub):
 
 def robustness(sub):
     """Workload 8, from the port's artifacts, each labelled "cached
-    artifact": the loops profile (no whole 4800-frame run fits in one call
-    on the card yet; `frames` against `profile_frames` says how far the
-    artifact's run got), the hard profile and the vocabulary evaluation."""
+    artifact": the loops profile (its 4800 frames take two calls on the card,
+    joined through a checkpoint; `frames` against `profile_frames` says how
+    far the artifact's run got), the hard profile and the vocabulary
+    evaluation."""
     from mc_slam_tpu_torch.tools.eval_clone import PROFILE_DURATION
     art = os.path.join(ROOT, "artifacts")
     path = os.path.join(art, "ate_clone_loops_torch.json")

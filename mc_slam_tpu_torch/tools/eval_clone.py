@@ -78,6 +78,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -596,13 +597,32 @@ def build_parser():
     return ap
 
 
+def _decimal_negatives(argv):
+    """argparse reads a negative number written with an exponent ("-5e-4")
+    as an option; such tokens are rewritten in decimal ("-0.0005") first."""
+    out = []
+    for tok in argv:
+        if tok.startswith("-") and not _NEG_DECIMAL.match(tok):
+            try:
+                v = float(tok)
+            except ValueError:
+                v = None
+            if v is not None and np.isfinite(v):
+                tok = np.format_float_positional(v, trim="-")
+        out.append(tok)
+    return out
+
+
+_NEG_DECIMAL = re.compile(r"^-\d+$|^-\d*\.\d+$")      # what argparse takes for a number
+
+
 def parse_args(argv=None):
     """The command line with the profile applied: its dataset arguments go
     in front of the caller's (which win), its duration replaces a default
     --duration of 120 s, its dataset folder and artifact name fill in what
-    was not given."""
+    was not given. A negative number may be written with an exponent."""
     ap = build_parser()
-    argv = list(sys.argv[1:] if argv is None else argv)
+    argv = _decimal_negatives(sys.argv[1:] if argv is None else argv)
     profile = ap.parse_known_args(argv)[0].profile
     args = ap.parse_args(PROFILE_GEN.get(profile, []) + argv)
     if args.duration == 120.0 and profile in PROFILE_DURATION:

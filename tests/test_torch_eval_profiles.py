@@ -109,6 +109,20 @@ def test_profile_arguments_apply_and_yield_to_the_command_line():
     assert eval_clone.side_path("x/r.json", "map", "small").endswith("x/map_clone_small_torch.png")
 
 
+@pytest.mark.parametrize("steps", [["0.0008", "-0.0005", "0.0005", "0.0004"],
+                                   ["8e-4", "-5e-4", "5e-4", "4e-4"],
+                                   ["8E-4", "-5E-04", "0.5e-3", "4.0e-4"]],
+                         ids=["decimal", "exponent", "mixed"])
+def test_drift_step_parses_written_either_way(steps):
+    """The README's loop-demo steps, in decimals and with exponents: argparse
+    alone reads "-5e-4" as an option; the port's parser takes all three."""
+    a = eval_clone.parse_args(["--profile", "euroc", "--inject-drift", "--drift-window", "20",
+                               "50", "--drift-step", *steps, "--no-loops"])
+    assert a.drift_step == [0.0008, -0.0005, 0.0005, 0.0004]
+    assert a.drift_window == [20.0, 50.0] and a.inject_drift and a.no_loops
+    assert eval_clone.parse_args(["--bg", "-1e-3", "-2", "-.5"]).bg == [-0.001, -2.0, -0.5]
+
+
 def _np_inject(m, ns_last, ns0, Rg, tg, cutoff):
     """examples/eval_clone.py's `_inject` (:174-196) in numpy, on dicts."""
     kf_sel = m["kf_active"] & (m["kf_id"] > cutoff)

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 import chip_smoke
+from mc_slam_tpu.frontend.extractor import Features as JFeatures
 from mc_slam_tpu.imu.navstate import NavState as JNavState
 from mc_slam_tpu.imu.preintegration import euroc_noise as j_noise
 from mc_slam_tpu.pipeline import tracking as jtracking
@@ -59,7 +60,7 @@ from mc_slam_tpu_torch.tools import eval_clone
 
 from torch_port_helpers import (BOOT, REVISIT_FRAMES, REVISIT_SRC, boot_run, jax_cam,
                                 jax_drift_injector, jax_ext, jax_features, jax_map,
-                                jax_system_from_port, revisit_run)
+                                jax_samples, jax_system_from_port, revisit_run)
 
 torch.set_num_threads(2)
 DIGEST = Path(__file__).with_name("torch_sync_digest.npz")
@@ -360,6 +361,190 @@ def test_rollback_matches_jax(monkeypatch):
     assert slam.reloc_buf is not None and slam.last_outcome.mode == "reloc"
 
 
+def _same_pnp_samples(monkeypatch, js):
+    """The port's relocalization draws the PnP samples the JAX `_relocalize`
+    draws (its key splits repeated at each call, tests/test_torch_reloc.py)."""
+    from mc_slam_tpu_torch.geometry import pnp
+    keys, orig_reloc, orig_draw = [], js._relocalize, pnp.draw_samples
+
+    def j_reloc(*a, **k):
+        _, sub = jax.random.split(js.key)
+        keys.append(jax.random.split(sub, tracking_ctl.C_PAD))
+        return orig_reloc(*a, **k)
+
+    def draw(generator, w, n_iters, k):
+        if w.dim() != 2:                                   # not a relocalization
+            return orig_draw(generator, w, n_iters, k)
+        kk = keys.pop()
+        return torch.from_numpy(np.stack([
+            jax_samples(kk[c], jnp.asarray(w[c].numpy(), jnp.float32), n_iters, k)
+            for c in range(w.shape[0])]).astype(np.int64))
+
+    js._relocalize = j_reloc
+    monkeypatch.setattr(pnp, "draw_samples", draw)
+
+
+def _decisions(monkeypatch, js):
+    """What need_new_kf read and decided at each call, in both packages:
+    [(frame, inliers, reference count, new keyframe)]."""
+    port, jx = [], []
+    orig, orig_j = tracking_ctl.need_new_kf, js._need_new_kf
+
+    def need(m, st, cfg, fid, n_in, reloc_open=False):
+        r = orig(m, st, cfg, fid, n_in, reloc_open)
+        port.append((int(fid), int(n_in), st.ref_tracked, bool(r)))
+        return r
+
+    def need_j(fid=None):
+        r = orig_j(fid=fid)
+        jx.append((int(js.frame_id if fid is None else fid), int(js._cur_inliers),
+                   js._ref_tracked_cache, bool(r)))
+        return r
+
+    monkeypatch.setattr(tracking_ctl, "need_new_kf", need)
+    js._need_new_kf = need_j
+    return port, jx
+
+
+def _port_events(events):
+    """The port's log as the JAX class writes it: the JAX class logs no event
+    for a frame that stays LOST or drops out of the bias window."""
+    return _events([e for e in events
+                    if not (e[1] == "lost" and e[2].get("mode") in ("lost", "reloc_window"))])
+
+
+def test_sync_keyframe_in_the_loop_defers_its_event_as_jax(monkeypatch):
+    """The unit of the repair: a keyframe decided off the steady state while
+    the frame loop is on (`SlamSystem._sync_keyframe_in_loop`) against the
+    JAX `_track_sync` block it ports (mc_slam_tpu/pipeline/system.py:365-373)
+    on boot_run()'s state: the keyframe written with the same IMU span, its
+    event's host half left pending, a loop-closing attempt of its own, the
+    caches dropped and the map epoch bumped; at the harvest that follows, the
+    reference count (within one point) and a second loop-closing attempt on
+    the event's detection. Events exact, the keyframe's pose to POS_TOL."""
+    slam = _port(12, 2, True)
+    js = _jax_twin(monkeypatch, slam, 12, 2, True)
+    n_ev, seq = len(slam.events), long_seq()
+    fid = slam.st.last_kf_frame + slam.cfg.kf_max_gap        # a keyframe by the gap rule
+    slam.frame_id = js.frame_id = fid
+    with jax_features():
+        feats, uv, t = _frame(slam)
+    rows = torch.from_numpy(seq.imu[FIRST])
+    slam.ts.imu_since_kf.append((fid, rows))
+    js.imu_since_kf.append((fid, seq.imu[FIRST]))
+    n_in = slam.ts.n_inliers
+    slot, _ = slam._sync_keyframe_in_loop(feats, uv, t, slam.ts.prev_feat_mp, n_in)
+    assert slot is not None
+    jf = JFeatures(**{k: jnp.asarray(v) for k, v in convert.to_numpy(feats).items()})
+    assert js._need_new_kf()
+    jslot = js._create_keyframe(jf, jnp.asarray(uv.numpy()), t)
+    js._local_mapping()
+    js._try_close_loop(jslot)
+    js._invalidate_frame_caches()
+    assert jslot == slot and _kf_ids(js) == _kf_ids(slam, slam.st)
+    assert js._map_epoch == slam.fl.map_epoch == 1
+    assert slam.st.ref_tracked is None and js._ref_tracked_cache is None
+    assert slam.fl.event is not None and js._deferred_event is not None
+    assert _events(js.events) == _events(slam.events[n_ev:])
+    np.testing.assert_array_equal(slam.st.kf_imu_raw[slot].numpy(), js.kf_imu_raw[jslot])
+    for f, tol in (("P", POS_TOL), ("R", 1e-3), ("V", 1e-2)):
+        np.testing.assert_allclose(getattr(slam.m.kf_ns, f).numpy()[slot],
+                                   np.asarray(getattr(js.m.kf_ns, f))[jslot], rtol=0, atol=tol)
+    np.testing.assert_allclose(slam.ts.P.numpy(), np.asarray(js.last_pose[0]), rtol=0,
+                               atol=POS_TOL)
+    # the next call's harvest of the event's host half
+    frameloop._harvest_event(slam)
+    js._harvest_event()
+    assert slam.fl.event is None and js._deferred_event is None
+    # the new keyframe's well-observed count, after the event's BA and landmark
+    # cull in each package: a point on the min_obs threshold may flip (one)
+    assert js._ref_tracked_cache is not None
+    assert abs(slam.st.ref_tracked - js._ref_tracked_cache) <= 1
+    assert _events(js.events) == _events(slam.events[n_ev:])
+    assert _kf_ids(js) == _kf_ids(slam, slam.st)
+
+
+RETURN_PAIRS = 24            # pairs fed after the bias window: 2 x LAG_MAX
+
+
+@pytest.mark.parametrize("ready", [False, True], ids=["at_depth_limit", "lag_one"])
+def test_reloc_window_and_return_to_the_loop_match_jax(monkeypatch, ready):
+    """The path from the synchronous relocalization back into the frame loop
+    (LAG_MAX 12, PAIR 2) against the JAX loop: a blank frame in flight, LOST
+    at its harvest; relocalization on REVISIT_SRC's view in that call (the
+    same PnP samples); the 20 frames of the bias window; the keyframe that
+    closes it (its event's host half deferred, a loop-closing attempt of its
+    own), then 2 x 12 pairs back in the loop, the first keyframes decided at
+    harvest among them; flush(). Held: the events, keyframe ids, lost
+    frames, map epoch and pending depth after every call, exactly; what
+    need_new_kf read and decided (reference counts exactly, inliers within
+    1 %); the keyframe poses and NavStates after every call that changed the
+    keyframes, and at the end `_assert_states_match`'s trajectory and tables."""
+    slam = _port(12, 2, ready)
+    js = _jax_twin(monkeypatch, slam, 12, 2, ready)
+    _same_pnp_samples(monkeypatch, js)
+    dec_p, dec_j = _decisions(monkeypatch, js)
+    n_ev = len(slam.events)
+    seq = long_seq()
+    fdt = float(seq.times[1] - seq.times[0])
+
+    def step(img, t, rows):
+        js.track(img, t, rows)
+        slam.track(img, t, rows)
+        assert _port_events(slam.events[n_ev:]) == _events(js.events)
+        assert _kf_ids(js) == _kf_ids(slam, slam.st) and js.state == slam.state
+        assert js.n_lost_frames == slam.n_lost_frames
+        assert js._map_epoch == slam.fl.map_epoch
+        assert len(js._pendings) == len(slam.fl.pendings)
+        if kf_seen[-1] != _kf_ids(slam, slam.st):
+            kf_seen.append(_kf_ids(slam, slam.st))
+            ks = slam.st.kf_slots
+            for f, tol in (("P", POS_TOL), ("R", 1e-3), ("V", 1e-2)):
+                np.testing.assert_allclose(getattr(slam.m.kf_ns, f).numpy()[ks],
+                                           np.asarray(getattr(js.m.kf_ns, f))[ks],
+                                           rtol=0, atol=tol)
+
+    kf_seen = [_kf_ids(slam, slam.st)]
+    t = float(seq.times[FIRST - 1])
+    blank = slam.frame_id
+    with jax_features():
+        # a blank frame opens the first pair; clone frames follow up to the
+        # call that harvests that pair
+        i = FIRST
+        while not (slam.fl.pendings and slam.fl.pendings[0].frames[0]["frame_id"] == blank
+                   and (ready or len(slam.fl.pendings) >= slam.LAG_MAX)):
+            t += fdt
+            step(np.zeros_like(seq.imgs[i]) if i == FIRST else seq.imgs[i], t, seq.imu[i])
+            i += 1
+        # that call loses the camera and relocalizes on REVISIT_SRC's view;
+        # then the bias window and the pairs back in the loop
+        for k in range(1 + slam.reloc_window + 2 * RETURN_PAIRS):
+            t += fdt
+            step(seq.imgs[REVISIT_SRC + k], t, seq.imu[REVISIT_SRC + k])
+            if k == 0:
+                assert slam.state == OK and slam.reloc_buf is not None
+        js.flush()
+        slam.flush()
+        assert _port_events(slam.events[n_ev:]) == _events(js.events)
+    kinds = _port_events(slam.events[n_ev:])
+    assert [k for _, k in kinds].count("lost") == 1
+    (f_reloc,) = [f for f, k in kinds if k == "reloc"]
+    closing = f_reloc + slam.reloc_window                  # the window-closing keyframe
+    ids = _kf_ids(slam, slam.st)
+    assert closing in ids and [f for f in ids if f > closing]     # ... and keyframes after it
+    assert slam.reloc_buf is None and slam.state == OK and not slam.fl.pendings
+    assert [(f, r, d) for f, _, r, d in dec_p] == [(f, r, d) for f, _, r, d in dec_j]
+    assert any(f > closing and d for f, _, _, d in dec_p)        # decided at harvest
+    for (_, a, _, _), (_, b, _, _) in zip(dec_p, dec_j):
+        assert abs(a - b) <= max(1.0, 0.01 * b)                            # 1 %
+    ref, got = js.get_trajectory(), slam.get_trajectory()
+    assert len(ref) == len(got) > 100
+    for (t0, P0, R0), (t1, P1, R1) in zip(ref, got):
+        assert t0 == t1
+        np.testing.assert_allclose(P1, P0, rtol=0, atol=POS_TOL)        # 1e-3 m
+        np.testing.assert_allclose(R1, R0, rtol=0, atol=1e-3)
+
+
 # ---------------------------------------------------------------------------
 # (d) the deferred loop stages
 # ---------------------------------------------------------------------------
@@ -412,7 +597,9 @@ def test_deferred_loop_stages_match_the_synchronous_ones():
             assert torch.equal(x, y), f
     newest = b.st.last_kf_slot
     assert torch.equal(b.ts.P, b.m.kf_ns.P[newest]) and b.ts.prior is None
-    assert float(b.ts.dP.abs().sum()) == 0.0 and b.fl.map_epoch == 1
+    # the closure bumps the map epoch once (revisit_run's relocalization and
+    # bias window bumped it before, as the JAX class does)
+    assert float(b.ts.dP.abs().sum()) == 0.0 and b.fl.map_epoch == base.fl.map_epoch + 1
 
 
 # ---------------------------------------------------------------------------
@@ -570,6 +757,16 @@ def test_chip_smoke_async_modes_on_the_cpu(tmp_path):
     assert a["dispatched"]["vi2"] == 0 and b["dispatched"]["vi2"] == 3 and b["max_depth"] == 1
     for k in a["pos"]:
         np.testing.assert_allclose(b["pos"][k], a["pos"][k], rtol=0, atol=POS_TOL)
+    # mode C, the transition, at LAG_MAX 3: 3 pairs in flight before the loss,
+    # 14 pairs after the window (a keyframe at kf_max_gap, decided at harvest)
+    _, srcs_c, times_c, rows_c = chip_smoke.resume_feed(slam.st, rv, seq, first, 2 * 3)
+    c, sys_c = chip_smoke.run_transition(ck["path"], slam.cam, slam.cfg, slam.event_kw, seq,
+                                         srcs_c, times_c, rows_c, REVISIT_SRC, slam.device,
+                                         lag_max=3, n_pairs=14)
+    assert c["frames_before"] == 6 and c["lost_frames"] == 6 and c["lost_after_reloc"] == 0
+    assert c["reloc_attempts"] == 1 and c["closing_is_kf"] and c["kf_after"]
+    assert c["twin_checked"] > 2 * c["frames_after"] and c["launches"] == 0    # CPU: the twin
+    assert sys_c.fl.n_dispatched["vi2"] >= 3 + 14 and c["epoch"] >= 3
     chip_smoke.profile_async_mode(sys_b, b, seq, n_profile=1)
     assert b["profile_frames"] == 1 and b["profile_wall_ms"] > 0
     assert b["profile_device_ms"] == 0.0        # no device on the CPU
