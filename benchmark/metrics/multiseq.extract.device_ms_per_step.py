@@ -1,0 +1,9 @@
+"""Milliseconds a batched step in which the card ran the operations launched
+inside the program's span `frontend.extract`: the batched extraction
+(pyramid, FAST, patches, BRIEF); in the traced window with the program's
+spans on (`_spans`)."""
+from benchmark.metrics import _spans
+
+
+def read(trace):
+    return _spans.read(trace, "frontend.extract", "device_ms")

@@ -1,0 +1,9 @@
+"""Milliseconds a batched step the card sat idle until an operation launched
+inside the program's span `tracking.search`: the projection searches
+(projection, level prediction, the search kernel, inversion; both rounds);
+in the traced window with the program's spans on (`_spans`)."""
+from benchmark.metrics import _spans
+
+
+def read(trace):
+    return _spans.read(trace, "tracking.search", "idle_ms")

@@ -1528,9 +1528,10 @@ def device_busy_ms(fn):
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     dev_ns, n = 0, 0
-    # the raw kineto records: building prof.events() takes ~40 s per 300k kernels
+    # the raw kineto records: building prof.events() takes ~40 s per 300k kernels;
+    # a StageTimer stage's shadow on the device is no kernel
     for ev in prof.profiler.kineto_results.events():
-        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+        if ev.device_type() == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation():
             dev_ns += ev.duration_ns()
             n += 1
     return out, wall_ms, dev_ns / 1e6, n

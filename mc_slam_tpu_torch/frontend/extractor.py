@@ -11,6 +11,7 @@ from typing import NamedTuple
 import torch
 
 from mc_slam_tpu_torch.frontend import fast, orb, pyramid
+from mc_slam_tpu_torch.utils.metrics import span
 
 
 class Features(NamedTuple):
@@ -38,32 +39,33 @@ def extract(img, n_features=1024, n_levels=8, scale=1.2, th_hi=20.0, th_lo=7.0,
     or a batch (B, H, W) of such images (one set of launches for all B).
     Returns Features of exactly n_features rows (invalid rows masked), with
     the batch dim leading every field."""
-    img = img.to(torch.float32)
-    lead = img.shape[:-2]
-    levels = pyramid.build_pyramid(img, n_levels, scale)
-    quotas = per_level_quota(n_features, n_levels, scale)
-    sf = pyramid.scale_factors(n_levels, scale)
-    # IC angle on the RAW level image, BRIEF on the blurred one (as the reference)
-    xys, lvls, scores, valids, patches_raw, patches_blur = [], [], [], [], [], []
-    for li, (lvl_img, quota) in enumerate(zip(levels, quotas)):
-        if quota == 0:
-            continue
-        xy, score, valid = fast.detect_grid(lvl_img, th_hi, th_lo, cell=cell,
-                                            max_kp=quota, border=16)
-        blur = pyramid.gaussian_blur(lvl_img)
-        patches_raw.append(orb.extract_patches(lvl_img, xy))
-        patches_blur.append(orb.extract_patches(blur, xy))
-        xys.append(xy * sf[li])
-        lvls.append(torch.full(lead + (quota,), li, dtype=torch.int32, device=img.device))
-        scores.append(score)
-        valids.append(valid)
+    with span("frontend.extract"):
+        img = img.to(torch.float32)
+        lead = img.shape[:-2]
+        levels = pyramid.build_pyramid(img, n_levels, scale)
+        quotas = per_level_quota(n_features, n_levels, scale)
+        sf = pyramid.scale_factors(n_levels, scale)
+        # IC angle on the RAW level image, BRIEF on the blurred one (as the reference)
+        xys, lvls, scores, valids, patches_raw, patches_blur = [], [], [], [], [], []
+        for li, (lvl_img, quota) in enumerate(zip(levels, quotas)):
+            if quota == 0:
+                continue
+            xy, score, valid = fast.detect_grid(lvl_img, th_hi, th_lo, cell=cell,
+                                                max_kp=quota, border=16)
+            blur = pyramid.gaussian_blur(lvl_img)
+            patches_raw.append(orb.extract_patches(lvl_img, xy))
+            patches_blur.append(orb.extract_patches(blur, xy))
+            xys.append(xy * sf[li])
+            lvls.append(torch.full(lead + (quota,), li, dtype=torch.int32, device=img.device))
+            scores.append(score)
+            valids.append(valid)
 
-    # the per-level tables stack along the feature axis
-    xy = torch.cat(xys, dim=-2)
-    valid = torch.cat(valids, dim=-1)
-    angle = orb.ic_angle_from_patches(torch.cat(patches_raw, dim=-3))
-    bits = orb.brief_from_patches(torch.cat(patches_blur, dim=-3), angle)
-    bits = bits * valid[..., None].to(bits.dtype)
-    return Features(xy=xy, level=torch.cat(lvls, dim=-1), angle=angle,
-                    score=torch.cat(scores, dim=-1), desc=orb.pack_bits(bits),
-                    desc_pm1=orb.bits_to_pm1(bits), valid=valid)
+        # the per-level tables stack along the feature axis
+        xy = torch.cat(xys, dim=-2)
+        valid = torch.cat(valids, dim=-1)
+        angle = orb.ic_angle_from_patches(torch.cat(patches_raw, dim=-3))
+        bits = orb.brief_from_patches(torch.cat(patches_blur, dim=-3), angle)
+        bits = bits * valid[..., None].to(bits.dtype)
+        return Features(xy=xy, level=torch.cat(lvls, dim=-1), angle=angle,
+                        score=torch.cat(scores, dim=-1), desc=orb.pack_bits(bits),
+                        desc_pm1=orb.bits_to_pm1(bits), valid=valid)

@@ -29,6 +29,7 @@ from mc_slam_tpu_torch.camera import undistort_points
 from mc_slam_tpu_torch.frontend import extractor
 from mc_slam_tpu_torch.parallel.dist_ba import Mesh, make_mesh, to_device
 from mc_slam_tpu_torch.pipeline import tracking
+from mc_slam_tpu_torch.utils.metrics import span
 
 
 def stack_maps(maps):
@@ -64,10 +65,11 @@ def make_batched_step(cam, ext, n_features=1024, n_levels=8, iters=10,
     shard runs one batched step on its own device."""
 
     def step(ms, imgs, P0s, R0s):
-        f = extractor.extract(imgs, n_features=n_features, n_levels=n_levels)
-        r = tracking.track_frame_visual(ms, f, undistort_points(cam, f.xy), cam, ext,
-                                        P0s, R0s, iters=iters)
-        return r.P, r.R, r.feat_mp, r.n_inliers
+        with span("multiseq.step"):
+            f = extractor.extract(imgs, n_features=n_features, n_levels=n_levels)
+            r = tracking.track_frame_visual(ms, f, undistort_points(cam, f.xy), cam, ext,
+                                            P0s, R0s, iters=iters)
+            return r.P, r.R, r.feat_mp, r.n_inliers
 
     if mesh is None:
         return step
@@ -84,12 +86,13 @@ def make_batched_step(cam, ext, n_features=1024, n_levels=8, iters=10,
         outs = []
         for k, dev in enumerate(mesh.devices):
             sl = slice(k * per, (k + 1) * per)
-            f = extractor.extract(imgs[sl].to(dev), n_features=n_features,
-                                  n_levels=n_levels)
-            r = tracking.track_frame_visual(
-                to_device(batch_rows(ms, sl), dev), f, undistort_points(cams[k], f.xy),
-                cams[k], exts[k], P0s[sl].to(dev), R0s[sl].to(dev), iters=iters)
-            outs.append((r.P, r.R, r.feat_mp, r.n_inliers))
+            with span("multiseq.step"):
+                f = extractor.extract(imgs[sl].to(dev), n_features=n_features,
+                                      n_levels=n_levels)
+                r = tracking.track_frame_visual(
+                    to_device(batch_rows(ms, sl), dev), f, undistort_points(cams[k], f.xy),
+                    cams[k], exts[k], P0s[sl].to(dev), R0s[sl].to(dev), iters=iters)
+                outs.append((r.P, r.R, r.feat_mp, r.n_inliers))
         dev0 = mesh.devices[0]
         return tuple(torch.cat([o[i].to(dev0) for o in outs]) for i in range(4))
 

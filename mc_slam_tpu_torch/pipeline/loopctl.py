@@ -17,7 +17,6 @@ harvest, at most one Sim3 batch in flight. The RANSAC samples are drawn from
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import NamedTuple
 
@@ -32,6 +31,7 @@ from mc_slam_tpu_torch.pipeline.pipebase import HostCopy
 from mc_slam_tpu_torch.slam_map.mapstate import (MapState, covisibility_weights,
                                                  observation_counts)
 from mc_slam_tpu_torch.solver import factors
+from mc_slam_tpu_torch.utils import metrics
 
 N_CAND = 3               # Sim3 candidates per event (2 streaked + 1 fallback, padded)
 BAR_STREAKED = 20        # RANSAC consensus asked of a candidate with a consistency streak
@@ -51,8 +51,7 @@ class LoopContext:
     probe: object = None         # callable(stage name), called as each stage starts
 
     def stage(self, name):
-        return self.timers.stage(name) if self.timers is not None \
-            else contextlib.nullcontext()
+        return metrics.stage(self.timers, name)
 
     def mark(self, name):
         if self.probe is not None:

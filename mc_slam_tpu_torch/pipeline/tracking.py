@@ -41,6 +41,7 @@ from mc_slam_tpu_torch.imu.preintegration import predict_navstate, preintegrate
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, _set_drop_batched
 from mc_slam_tpu_torch.solver import ba, ba_vi, factors
 from mc_slam_tpu_torch.solver.ba import VisualObs
+from mc_slam_tpu_torch.utils.metrics import span
 
 
 class TrackResult(NamedTuple):
@@ -126,21 +127,22 @@ def _search(m, feats, uv_ideal, cam, ext, P, R, radius, inv_sigma2,
     """One projection search against the active map; returns the pose-only
     observation table (with the u_right column `feat_ur`), feat_mp and the
     matched mask."""
-    Fn = feats.valid.shape[-1]
-    proj_uv, _, vis = project_map_points(m, cam, ext, P, R)
-    lvl = predict_level(m, P)
-    mp_idx, _, ok = matching.search_by_projection(
-        proj_uv, vis, lvl, m.mp_desc, m.mp_pm1, uv_ideal, feats.level,
-        feats.desc, feats.desc_pm1, feats.valid, radius_px=radius,
-        proj_angle=mp_last_angle, feat_angle=feats.angle,
-        proj_angle_valid=mp_seen_last)
-    feat_mp = _invert_matches(m, mp_idx, ok, Fn)
-    matched = feat_mp >= 0
-    obs = VisualObs(cam=torch.zeros(feat_mp.shape, dtype=torch.int64, device=uv_ideal.device),
-                    pt=torch.clamp(feat_mp, 0, m.P - 1).to(torch.int64),
-                    uv=uv_ideal, inv_sigma2=inv_sigma2,
-                    valid=matched.to(torch.float32), ur=feat_ur)
-    return obs, feat_mp, matched
+    with span("tracking.search"):
+        Fn = feats.valid.shape[-1]
+        proj_uv, _, vis = project_map_points(m, cam, ext, P, R)
+        lvl = predict_level(m, P)
+        mp_idx, _, ok = matching.search_by_projection(
+            proj_uv, vis, lvl, m.mp_desc, m.mp_pm1, uv_ideal, feats.level,
+            feats.desc, feats.desc_pm1, feats.valid, radius_px=radius,
+            proj_angle=mp_last_angle, feat_angle=feats.angle,
+            proj_angle_valid=mp_seen_last)
+        feat_mp = _invert_matches(m, mp_idx, ok, Fn)
+        matched = feat_mp >= 0
+        obs = VisualObs(cam=torch.zeros(feat_mp.shape, dtype=torch.int64, device=uv_ideal.device),
+                        pt=torch.clamp(feat_mp, 0, m.P - 1).to(torch.int64),
+                        uv=uv_ideal, inv_sigma2=inv_sigma2,
+                        valid=matched.to(torch.float32), ur=feat_ur)
+        return obs, feat_mp, matched
 
 
 def _level_info(feats: Features):
@@ -166,8 +168,9 @@ def track_frame_visual(m: MapState, feats: Features, uv_ideal, cam: Camera,
     def one_round(P, R, radius):
         obs, feat_mp, matched = _search(m, feats, uv_ideal, cam, ext, P, R, radius,
                                         inv_sigma2, mp_last_angle, mp_seen_last, feat_ur)
-        Pn, Rn, chi2, n_in = ba.pose_only_visual(P, R, m.mp_pos, obs, cam, ext,
-                                                 iters=iters, bf=bf, rtol=rtol)
+        with span("tracking.solve"):
+            Pn, Rn, chi2, n_in = ba.pose_only_visual(P, R, m.mp_pos, obs, cam, ext,
+                                                     iters=iters, bf=bf, rtol=rtol)
         inlier = matched & (chi2 <= ba.chi2_gate(feat_ur))
         return Pn, Rn, torch.where(inlier, feat_mp, -1), torch.sum(matched, dim=-1), n_in
 
@@ -213,15 +216,17 @@ def track_frame_vi(m: MapState, feats: Features, uv_ideal, cam: Camera,
 
     obs1, _, _ = _search(m, feats, uv_ideal, cam, ext, ns_cur0.P, ns_cur0.R,
                          radius_coarse, inv_sigma2, mp_last_angle, mp_seen_last, feat_ur)
-    ns1, _, _, _ = ba_vi.pose_only_vi(
-        ns_cur0, ns_last, pre_last_cur, m.mp_pos, obs1, cam, ext, gw, prior_last,
-        info_prv, info_bias, iters=iters, compute_marg=False, bf=bf, rtol=rtol)
+    with span("tracking.solve"):
+        ns1, _, _, _ = ba_vi.pose_only_vi(
+            ns_cur0, ns_last, pre_last_cur, m.mp_pos, obs1, cam, ext, gw, prior_last,
+            info_prv, info_bias, iters=iters, compute_marg=False, bf=bf, rtol=rtol)
     obs2, feat_mp, matched = _search(m, feats, uv_ideal, cam, ext, ns1.P, ns1.R,
                                      radius_fine, inv_sigma2, mp_last_angle,
                                      mp_seen_last, feat_ur)
-    ns2, chi2, n_in, H_marg = ba_vi.pose_only_vi(
-        ns1, ns_last, pre_last_cur, m.mp_pos, obs2, cam, ext, gw, prior_last,
-        info_prv, info_bias, iters=iters, compute_marg=True, bf=bf, rtol=rtol)
+    with span("tracking.solve"):
+        ns2, chi2, n_in, H_marg = ba_vi.pose_only_vi(
+            ns1, ns_last, pre_last_cur, m.mp_pos, obs2, cam, ext, gw, prior_last,
+            info_prv, info_bias, iters=iters, compute_marg=True, bf=bf, rtol=rtol)
     inlier = matched & (chi2 <= ba.chi2_gate(feat_ur))
     return ns2, torch.where(inlier, feat_mp, -1), torch.sum(matched), n_in, H_marg
 

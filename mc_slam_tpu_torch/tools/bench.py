@@ -248,7 +248,8 @@ def device_ops(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    ev = [e for e in prof.events()       # not the shadows of StageTimer stages
+          if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
     copies = sum(e.name.startswith(("Memcpy", "Memset")) for e in ev)
     return len(ev) - copies, copies
 

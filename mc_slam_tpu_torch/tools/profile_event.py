@@ -71,8 +71,8 @@ def measure(name, fn, rows):
         f"{Path(w.filename).name}:{w.lineno}" for w in caught
         if "synchroniz" in str(w.message))
     dev_us, kernels = 0.0, 0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
+    for ev in prof.events():     # a stage's record_function shadow is no kernel
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             dev_us += ev.device_time
             kernels += 1
     rows.append(dict(stage=name, host_ms=host_ms, enqueue_ms=t_enqueue * 1e3,

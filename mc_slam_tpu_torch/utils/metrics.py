@@ -6,7 +6,14 @@ mc_slam_tpu/utils/metrics.py).
     on the current stream and read at `summary()`: nothing inside the frame
     loop waits for the device. The host's clock is kept beside it. Stages
     nest (an event inside "local_mapping" inside "track"): each is reported by
-    itself and they are not to be summed.
+    itself and they are not to be summed. Every stage also leaves a record
+    (`records`: name, parent, host start and end) stamped in the clock of
+    torch.profiler's events, and, while a profiler runs, a
+    `record_function` range of its name, so a trace can tie device work and
+    device gaps to the stages.
+  * tracing / span: library code opens `span(name)`, a stage of the timer
+    made active by `with tracing(timer):`; with no active timer it is one
+    shared no-op context (no event, no range, no record).
   * VIInitLog: the reference's diagnostic file set (scale.txt, biasg.txt,
     biasa.txt, gw.txt, condnum.txt, computetime.txt, Rwi.txt) written from
     VIInitResult records, format-compatible with plotinit.py.
@@ -16,12 +23,26 @@ Device-level kernel breakdowns come from tools/profile_event.py
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import os
 import time
 from collections import defaultdict
+from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_ACTIVE = contextvars.ContextVar("mc_slam_tpu_torch_active_timer", default=None)
+
+
+class StageRecord(NamedTuple):
+    name: str
+    parent: str | None   # the innermost stage open when this one started
+    start_ns: int        # host clock of torch.profiler's events (time.time_ns)
+    end_ns: int
 
 
 class StageTimer:
@@ -32,20 +53,29 @@ class StageTimer:
         self.cuda = device is not None and torch.device(device).type == "cuda"
         self._events = defaultdict(list)        # name -> (start, end) CUDA events
         self.device_samples = defaultdict(list)  # name -> device seconds, read so far
+        self.records = []                       # StageRecord, in the order stages close
+        self._open = []                         # names of the stages open now
 
     @contextlib.contextmanager
     def stage(self, name):
-        if self.cuda:
-            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            s.record()
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.samples[name].append(time.perf_counter() - t0)
+        parent = self._open[-1] if self._open else None
+        self._open.append(name)
+        with record_function(name) if _profiler_enabled() else _OFF:
             if self.cuda:
-                e.record()
-                self._events[name].append((s, e))
+                s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                s.record()
+            t0 = time.perf_counter()
+            w0 = time.time_ns()
+            try:
+                yield
+            finally:
+                w1 = time.time_ns()
+                self.samples[name].append(time.perf_counter() - t0)
+                if self.cuda:
+                    e.record()
+                    self._events[name].append((s, e))
+                self._open.pop()
+                self.records.append(StageRecord(name, parent, w0, w1))
 
     def marks(self, prefix):
         """A callable(stage_name) for code that announces its stages one
@@ -96,6 +126,28 @@ class StageTimer:
                 line += f" device median={s['device_median_ms']:8.2f}ms"
             lines.append(line)
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def tracing(timer):
+    """Make `timer` the active one while the block runs (in this thread or
+    task): every `span` opened inside is a stage of it."""
+    token = _ACTIVE.set(timer)
+    try:
+        yield timer
+    finally:
+        _ACTIVE.reset(token)
+
+
+def stage(timer, name):
+    """timer.stage(name), or the shared no-op context where timer is None."""
+    return _OFF if timer is None else timer.stage(name)
+
+
+def span(name):
+    """A stage of the active timer (`tracing`); the shared no-op context
+    where none is active."""
+    return stage(_ACTIVE.get(), name)
 
 
 def _np(x):
