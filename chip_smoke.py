@@ -177,15 +177,19 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     position RMSE against ground truth is under path 1's 2 cm; the same
     windows tracked one at a time by the unbatched `track_frame_visual` agree
     within 1e-3 m and 2 inliers (tests/test_multiseq.py's tolerances); the
-    kernel launched exactly 2 times a batched step (22 unbatched); the
-    batched kernel equals the batched twin exactly on the step's real
-    searches and on planted inputs at B=11 x 16384 x 1024, r = 4 / 15 / 40
-    px; 10 of the windows over a two-shard "seq" mesh on cuda:0 agree with
-    the unsharded step as above. Prints ms per batched step (median, p90),
+    kernel launched exactly 2 times a batched step (22 unbatched), and so did
+    the pose LM kernel (`solver/pose_lm_cuda.py`); the batched kernel equals
+    the batched twin exactly on the step's real searches and on planted
+    inputs at B=11 x 16384 x 1024, r = 4 / 15 / 40 px; the pose LM kernel
+    keeps to its twin (`ba.pose_only_visual_ref`) on the step's two recorded
+    solves within the POSE_LM_* tolerances (position, rotation, each row's
+    chi2, inliers), one launch a solve; 10 of the windows over a two-shard
+    "seq" mesh on cuda:0 agree with the unsharded step as above. Prints ms per batched step (median, p90),
     aggregate frames/s against the sequential run's, launches of all kernels
-    a batched step against an unbatched frame's, peak memory, and the
+    a batched step against an unbatched frame's, peak memory, the
     batched kernel's warm / cold times beside 11 x the single problem's and
-    its bound;
+    its bound, and the pose LM kernel's warm / cold times beside its twin's
+    and its bound;
 16. phase "multihost" (BASELINE.json config #5): tools/run_multihost_ba.py
     --demo 2 (two ranks on cuda:0 over gloo, 4 shards a rank) and --demo 1
     with nccl (one rank: the NCCL all_reduce runs on the card), both on the
@@ -205,9 +209,14 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     iterations. Fails unless the kernel equals its twin on the searches of
     the first frame step and the first batched step that the workloads
     timed (`probes.SearchRecorder` in front of the wrapper), the kernel
-    launched 2 times a frame step and 2 times a batched step, and every BA
-    cost curve is finite and non-increasing; prints each workload's time and
-    the launches a frame.
+    launched 2 times a frame step and 2 times a batched step, and so did the
+    pose LM kernel, and every BA cost curve is finite and non-increasing;
+    prints each workload's time and the launches a frame.
+Every path and phase that tracks frames also counts the pose LM kernel's
+launches from 0 and, where it knows how many frames it tracked visually,
+fails unless there were at least 2 a frame; the line "[launches]" gives
+them by path, with no timing or check launch among them, and their sum is
+the kernel's "launches" in the record.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -244,7 +253,7 @@ from mc_slam_tpu_torch.pipeline.pipebase import LOST, OK
 from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
 from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix, empty_map,
                                                  observation_counts)
-from mc_slam_tpu_torch.solver import ba_vi, factors
+from mc_slam_tpu_torch.solver import ba, ba_vi, factors, pose_lm_cuda
 from mc_slam_tpu_torch.tools.eval_clone import PROFILE_CONFIG, eviction_watch
 from mc_slam_tpu_torch.tools.probes import SearchRecorder, time_cuda, time_cuda_cold
 
@@ -258,6 +267,7 @@ TRUE_BG = np.array([0.003, -0.0045, 0.0035])    # examples/make_euroc_clone.py
 TRUE_BA = np.array([0.035, -0.02, 0.06])
 KERNEL_SOURCE = "mc_slam_tpu_torch/csrc/hamming_top2_windowed.cu"
 KERNEL_REPLACES = "mc_slam_tpu/frontend/match_pallas.py:100"
+POSE_LM_SOURCE = "mc_slam_tpu_torch/csrc/pose_lm.cu"
 RADII = (4.0, 15.0, 40.0)
 RMSE_LIMIT_LOC = 0.02       # m, path 1 (tracking against a ground-truth map)
 PATH1_FRAMES = 10           # frames path 1 tracks
@@ -1480,12 +1490,13 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
     k = st2.last_kf_slot
     src_kf, srcs, times, rows = resume_feed(st2, rv, seq, first, n_frames)
     frame_ms, n_ok = [], 0
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     for j, i in enumerate(srcs):
         ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows[j]), cuda)
         frame_ms.append(ms)
         n_ok += int(ok)
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     tr = [x for x in new.get_trajectory() if x[0] >= times[0] - 1e-6]
     ate = ate_rmse(np.asarray([x[0] for x in tr]), np.asarray([x[1] for x in tr]),
                    np.asarray(times), seq.P[first:first + n_frames], with_scale=True)
@@ -1502,6 +1513,7 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
                 broken_chain_slots=sorted(st.broken_chain_slots), free_slots=list(st.free_slots),
                 n_hist_ids=len(slam.loop.hist_ids), traj_rows=len(tr_b), resume_kf=k,
                 resume_src=src_kf, frames=srcs, n_tracked=n_ok, launches=launches,
+                lm_launches=lm_launches,
                 frame_ms_median=float(np.median(frame_ms)), ate=ate,
                 keyframes_after=new.n_kf - slam.n_kf)
 
@@ -1576,7 +1588,7 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
     orig = match_cuda.hamming_top2_windowed
     if recorder is not None:
         match_cuda.hamming_top2_windowed = recorder
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     try:
         with sync_watch(cuda) as caught:
             t0 = time.perf_counter()
@@ -1587,6 +1599,7 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
     finally:
         match_cuda.hamming_top2_windowed = orig
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else float("nan")
     fl, n = slam.fl, len(srcs)
     traj = [x for x in slam.get_trajectory() if x[0] >= times[0] - 1e-6]
@@ -1598,7 +1611,8 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
     out = dict(lag_max=lag_max, pair=pair, frames=n, tracked=int(sum(oks)),
                frame_ms_median=float(np.median(frame_ms)),
                frame_ms_p90=float(np.percentile(frame_ms, 90)), wall_s=wall, fps=n / wall,
-               launches=launches, launches_per_frame=launches / n, syncs_per_frame=n_sync / n,
+               launches=launches, launches_per_frame=launches / n, lm_launches=lm_launches,
+               syncs_per_frame=n_sync / n,
                pulls=pulls, max_depth=fl.max_depth, dispatched=dict(fl.n_dispatched),
                ev_chain_drain_ms=[1e3 * x for x in smp.get("ev_chain_drain", [])],
                keyframes=slam.n_kf - n_kf0, events_deferred=fl.n_events_deferred,
@@ -1660,7 +1674,7 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
     chk = TwinCheck()
     orig = match_cuda.hamming_top2_windowed
     match_cuda.hamming_top2_windowed = chk
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.perf_counter()
     try:
         fid_blank, j = slam.frame_id, 0
@@ -1686,6 +1700,7 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
         match_cuda.hamming_top2_windowed = orig
     wall = time.perf_counter() - t0
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     ev = [e for e in slam.events[n_ev0:] if e[1] != "kf_culled"]
     # the loss of the blank's pair (not the failed relocalization attempts after it)
     lost = [e for e in ev if e[1] == "lost" and e[2].get("mode") != "lost"]
@@ -1700,6 +1715,7 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
                kf_after=[f for f in ids if closing is not None and f > closing],
                epoch=slam.fl.map_epoch, pending_after_flush=len(slam.fl.pendings),
                dispatched=dict(slam.fl.n_dispatched), launches=launches,
+               lm_launches=lm_launches,
                twin_checked=chk.n, twin_max_err=chk.max_err, wall_s=wall)
     if len(lost) != 1 or out["lost_mode"] != "vi2" or len(reloc) != 1:
         raise AssertionError(f"transition: {len(lost)} lost events ({out['lost_mode']}), "
@@ -2142,10 +2158,11 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = SearchRecorder(keep_frames={110, 120, 130}, timed=False)
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
     res, watch = run_evict(seq, p, cam, dev, recorder=rec)
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     slam = res["slam"]
@@ -2174,7 +2191,8 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
     detail = {"profile": {k: getattr(p, k) for k in ("n_feat", "n_levels", "local_window",
                                                      "max_kf", "max_mp", "vi_init_time",
                                                      "n_vi_frames")},
-              "frames": len(fr), "launches": launches, "accepted_at_frame": res["i_accept"],
+              "frames": len(fr), "launches": launches, "lm_launches": lm_launches,
+              "accepted_at_frame": res["i_accept"],
               "kf_evictions": watch["kf"], "mp_evictions": watch["mp"],
               "keyframes_inserted": slam.n_kf, "keyframes_culled": res["n_culled_kf"],
               "lost_frames": slam.n_lost_frames, "frame_ms_vi_median":
@@ -2182,6 +2200,7 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
               float(np.median(ev_ms)), "peak_device_MiB": peak_mb, "seconds": wall}
     err = 0
     if check:
+        check_lm_launches("evict", lm_launches, sum(not f["vi"] for f in fr))
         measured = check_evict(res, watch, seq, p)
         detail["measured"] = measured
         err, n_real = _real_search_check(rec)
@@ -2207,10 +2226,11 @@ def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
     torch.cuda.reset_peak_memory_stats()
     rec = SearchRecorder(keep_frames=() if stereo else {1, p.n_frames // 2, p.n_frames - 1},
                          timed=False)
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
     res = run_depth(seq, p, cam, dev, right=right, recorder=rec)
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for e in res["events"]:
@@ -2252,11 +2272,14 @@ def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
                     if stereo else ""))
     if launches < 2 * len(fr) - 2:
         raise AssertionError(f"kernel launched {launches} times for {len(fr)} frames")
+    # frame 0 initializes from depth and is not tracked
+    check_lm_launches(name, lm_launches, sum(not f["vi"] for f in fr[1:]))
     err, n_real = _real_search_check(rec)
     _phase(name, f"kernel == twin on the {n_real} real searches of "
                  + ("the first frame and the first VI frame" if stereo else "3 frames"))
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
-    detail = {"frames": len(fr), "launches": launches, "measured": measured,
+    detail = {"frames": len(fr), "launches": launches, "lm_launches": lm_launches,
+              "measured": measured,
               "events": [strip(e) for e in res["events"]], "attempts": res["attempts"],
               "accepted_at_frame": res["i_accept"], "keyframes_inserted": slam.n_kf,
               "frame_ms_median": float(np.median(vis_ms)),
@@ -2407,10 +2430,11 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = SearchRecorder(keep_frames=(), timed=False)
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
     res = run_bootstrap(seq, p, cam, dev, recorder=rec)
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     ini = res["init"]
@@ -2463,11 +2487,12 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
                              f"rows for {n_boot + 1} tracked frames")
     if launches < 2 * n_boot:
         raise AssertionError(f"kernel launched {launches} times for {n_boot} frames")
+    check_lm_launches(name, lm_launches, sum(not f["vi"] for f in res["frames"]))
     err, n_real = _real_search_check(rec)
     _phase(name, f"kernel == twin on the {n_real} real searches of one visual frame "
                  f"and one VI frame")
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
-    detail = {"frames": n_boot, "launches": launches, "init": ini,
+    detail = {"frames": n_boot, "launches": launches, "lm_launches": lm_launches, "init": ini,
               "events": [strip(e) for e in ev], "attempts": res["attempts"],
               "accepted_at_frame": res["i_accept"], "measured": measured,
               "keyframes_inserted": slam.n_kf, "keyframes_culled": res["n_culled_kf"],
@@ -2530,7 +2555,7 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec = SearchRecorder(keep_frames=set(), timed=False)
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
     rv = run_revisit(res, seq, p, REVISIT_SRC, REVISIT_FRAMES, recorder=rec)
     wall = time.time() - t0
@@ -2573,6 +2598,7 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     t1 = time.time()
     lp = run_loop_phase(slam, rv["new_kf"], spread, recorder=rec)
     launches = hamming_top2_windowed.launches
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     err, n_real = _real_search_check(rec)
     v = [x for x in lp["verify"] if x["cand"] == lp["cand"]][-1]
@@ -2607,10 +2633,12 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     if launches <= launches_track or n_real < 3:
         raise AssertionError(f"the guided verification did not reach the kernel "
                              f"({launches_track} -> {launches} launches, {n_real} recorded)")
+    check_lm_launches("path5", lm_launches, rv["n_window"])
     strip = lambda d: {k: (v_.tolist() if isinstance(v_, np.ndarray) else v_)
                        for k, v_ in d.items()
                        if k not in ("m_planted", "frames", "events", "measured")}
     detail = {"frames": len(fr), "launches": launches, "launches_before_loop": launches_track,
+              "lm_launches": lm_launches,
               "revisit": strip(rv), "loop": strip(lp), "loop_stage_kernels": kernels,
               "attempt_lost_ms": float(np.median(lost_ms)), "reloc_ms": f_reloc["ms"],
               "window_frame_ms": float(np.median(win_ms)),
@@ -2629,6 +2657,100 @@ MULTISEQ_ITERS = 10         # make_batched_step's default
 MULTISEQ_POS_TOL = 1e-3     # m, batched against unbatched (tests/test_multiseq.py)
 MULTISEQ_INLIER_TOL = 2     # inliers, the same test's tolerance
 MULTISEQ_MESH_B = 10        # windows over the two-shard "seq" mesh (B divides evenly)
+
+
+# the pose LM kernel (solver/pose_lm_cuda.py) against its twin, here on recorded
+# solves and in tests/test_torch_pose_lm.py (whose docstring gives the reasons):
+# float32 sums in another order move a converged pose by about its last step
+POSE_LM_POS_TOL = 1e-4      # m
+POSE_LM_ROT_TOL = 1e-4      # rad
+POSE_LM_CHI2_RTOL, POSE_LM_CHI2_ATOL = 1e-2, 5e-2    # a row's chi2
+POSE_LM_INLIER_TOL = 2
+FLOAT_OPS_PER_S = 67e12     # float32 outside the tensor cores, a multiply-add as two
+# float operations an observation row takes in one pass of csrc/pose_lm.cu,
+# counted from the source (a multiply-add as two): the residual, the 2x6 /
+# 3x6 Jacobian, the robust weight and cost and the 27 sums of H and g, by
+# variant (monocular, stereo); the last pass forms residuals and chi2 only
+POSE_LM_ROW_OPS = {False: 277, True: 390}
+POSE_LM_FINAL_ROW_OPS = {False: 51, True: 57}
+POSE_LM_SOLVE_OPS = 400     # thread 0's damping, 6x6 Cholesky, retraction a iteration
+
+
+class SolveRecorder:
+    """Stands in for ba.pose_only_visual during a run (tracking calls it
+    through the module) and keeps each call's arguments by reference."""
+
+    def __init__(self):
+        self.fn = ba.pose_only_visual
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        self.calls.append((args, kw))
+        return self.fn(*args, **kw)
+
+
+def pose_lm_bound(P0, obs, iters):
+    """The least milliseconds the card could take for one launch: the larger
+    of bytes over the memory rate (each input row, its gathered point and
+    each output read or written once) and operations over the float32 rate
+    (1 + iters passes over every row, a pass a candidate, the last pass, the
+    block sums and thread 0's solves). A candidate that is not finite skips
+    its pass; that happens only where a Cholesky fails, so it is not
+    counted. Returns (bound_ms, bound_by, detail dict)."""
+    B = P0.shape[0] if P0.dim() == 2 else 1
+    O = obs.pt.shape[-1]
+    stereo = obs.ur is not None
+    n_bytes = B * (O * (8 + 8 + 4 + 4 + 12 + 4 + (4 if stereo else 0)) + 2 * 48 + 8)
+    ops = B * (O * ((1 + iters) * POSE_LM_ROW_OPS[stereo] + POSE_LM_FINAL_ROW_OPS[stereo])
+               + (1 + iters) * 28 * 255 + iters * POSE_LM_SOLVE_OPS)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FLOAT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            dict(bytes=n_bytes, operations=ops, bytes_ms=t_bytes, operations_ms=t_ops))
+
+
+def rot_gap_rad(Ra, Rb):
+    """Largest angle of Ra^T Rb over a batch, from its skew part."""
+    M = Ra.transpose(-1, -2).double() @ Rb.double()
+    w = torch.stack([M[..., 2, 1] - M[..., 1, 2], M[..., 0, 2] - M[..., 2, 0],
+                     M[..., 1, 0] - M[..., 0, 1]], -1) / 2
+    cos = (M.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
+    return float(torch.atan2(torch.linalg.norm(w, dim=-1), cos).max())
+
+
+def pose_lm_check(calls):
+    """The kernel (ba.pose_only_visual on the card) against its twin
+    (ba.pose_only_visual_ref) on recorded solves; raises past the POSE_LM_*
+    tolerances. Returns the largest gaps (position m, rotation rad, a row's
+    chi2 gap over its tolerance atol + rtol |chi2|, inliers) and the launches
+    the checks made."""
+    n0 = pose_lm_cuda.pose_only_visual_lm.launches
+    gaps = dict(dP_m=0.0, dR_rad=0.0, dchi2_of_tol=0.0, dn=0)
+    for args, kw in calls:
+        (P, R, chi2, n), (Pr, Rr, chi2r, nr) = (ba.pose_only_visual(*args, **kw),
+                                                ba.pose_only_visual_ref(*args, **kw))
+        gaps["dP_m"] = max(gaps["dP_m"], float((P - Pr).abs().max()))
+        gaps["dR_rad"] = max(gaps["dR_rad"], rot_gap_rad(R, Rr))
+        r = (chi2 - chi2r).abs() / (POSE_LM_CHI2_ATOL + POSE_LM_CHI2_RTOL * chi2r.abs())
+        r = torch.where(chi2.isnan() & chi2r.isnan(), 0.0, r).nan_to_num(nan=float("inf"))
+        gaps["dchi2_of_tol"] = max(gaps["dchi2_of_tol"], float(r.max()))
+        gaps["dn"] = max(gaps["dn"], int((n - nr).abs().max()))
+    launches = pose_lm_cuda.pose_only_visual_lm.launches - n0
+    if (gaps["dP_m"] >= POSE_LM_POS_TOL or gaps["dR_rad"] >= POSE_LM_ROT_TOL
+            or gaps["dchi2_of_tol"] > 1 or gaps["dn"] > POSE_LM_INLIER_TOL
+            or launches != len(calls)):
+        raise AssertionError(f"pose LM kernel against its twin: {gaps}, {launches} launches "
+                             f"for {len(calls)} solves")
+    return gaps, launches
+
+
+def check_lm_launches(name, lm_launches, n_visual):
+    """Raises unless the pose LM kernel launched at least twice for each of
+    the n_visual frames a path tracked visually (`track_frame_visual`'s two
+    rounds, one `ba.pose_only_visual` each; the wide retry adds two more)."""
+    if lm_launches < 2 * n_visual:
+        raise AssertionError(f"{name}: the pose LM kernel launched {lm_launches} times for "
+                             f"{n_visual} visually tracked frames")
 
 
 def window(seq: Sequence, s: int, n: int) -> Sequence:
@@ -2717,17 +2839,19 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
     track_windows(single_step, maps[0], seq, starts[:1], dev, batched=False, n_steps=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     bat = track_windows(step, ms, seq, starts, dev, timed=True)
     launches_batched = hamming_top2_windowed.launches
+    lm_batched = pose_lm_cuda.pose_only_visual_lm.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # the same windows one at a time through the unbatched program
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t1 = time.perf_counter()
     seqs = [track_windows(single_step, maps[b], seq, [s], dev, batched=False, timed=True)
             for b, s in enumerate(starts)]
     seq_s = time.perf_counter() - t1
     launches_single = hamming_top2_windowed.launches
+    lm_single = pose_lm_cuda.pose_only_visual_lm.launches
     gt = np.stack([seq.P[s + 1:s + 1 + MULTISEQ_STEPS] for s in starts], axis=1)
     rmse = np.sqrt(np.mean(np.sum((bat["P"] - gt) ** 2, axis=-1), axis=0))
     P_single = np.concatenate([r["P"] for r in seqs], axis=1)
@@ -2760,6 +2884,11 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
     if launches_batched != 2 * MULTISEQ_STEPS or launches_single != 2 * MULTISEQ_STEPS * B:
         raise AssertionError(f"kernel launches {launches_batched} batched, "
                              f"{launches_single} unbatched")
+    _phase("multiseq", f"pose LM kernel launches {lm_batched} batched "
+                       f"({lm_batched / MULTISEQ_STEPS:g} a step) against {lm_single} unbatched")
+    if lm_batched != 2 * MULTISEQ_STEPS or lm_single != 2 * MULTISEQ_STEPS * B:
+        raise AssertionError(f"pose LM kernel launches {lm_batched} batched, {lm_single} "
+                             "unbatched")
     # launches of every kernel: one batched step against one unbatched frame
     f1 = {s: torch.from_numpy(seq.imgs[s + 1]).to(dev) for s in starts}
     P0 = _t(seq.P[list(starts)], dev)
@@ -2782,6 +2911,32 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
     del rec
     _phase("multiseq", f"batched kernel == batched twin on the {n_real} real searches of one "
                        f"step (a_desc {shapes})")
+    # the pose LM kernel on the step's two recorded solves
+    srec = SolveRecorder()
+    ba.pose_only_visual = srec
+    try:
+        step(ms, imgs1, P0, R0)
+    finally:
+        ba.pose_only_visual = srec.fn
+    lm_gaps, lm_launches = pose_lm_check(srec.calls)
+    args, kw = srec.calls[0]
+    flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    lm_ms = time_cuda(lambda: ba.pose_only_visual(*args, **kw))
+    lm_cold = time_cuda_cold(lambda: ba.pose_only_visual(*args, **kw), flush)
+    lm_twin = time_cuda(lambda: ba.pose_only_visual_ref(*args, **kw), n=3, warmup=1, rounds=3)
+    lm_bound, lm_by, lm_detail = pose_lm_bound(args[0], args[3], kw["iters"])
+    del flush
+    _phase("multiseq", f"pose LM kernel against its twin on the {len(srec.calls)} solves of one "
+                       f"step (B={args[0].shape[0]} O={args[3].pt.shape[-1]} "
+                       f"Np={args[2].shape[-2]}, {kw['iters']} iterations): positions within "
+                       f"{lm_gaps['dP_m']:.3g} m (< {POSE_LM_POS_TOL:g}), rotations within "
+                       f"{lm_gaps['dR_rad']:.3g} rad (< {POSE_LM_ROT_TOL:g}), chi2 within "
+                       f"{lm_gaps['dchi2_of_tol']:.3g} of its tolerance, inliers within "
+                       f"{lm_gaps['dn']} (<= {POSE_LM_INLIER_TOL}); {lm_launches} launches for "
+                       f"{len(srec.calls)} calls; "
+                       f"one launch {lm_ms * 1e3:.1f} us (cold L2 {lm_cold * 1e3:.1f} us), twin "
+                       f"{lm_twin * 1e3:.1f} us, bound {lm_bound * 1e3:.2f} us by {lm_by}")
+    del srec, args, kw
     # the batched kernel at B x the tracking shapes, planted ties
     rng = np.random.default_rng(11)
     inp = planted_inputs(16384, 1024, rng, dev, batch=B)
@@ -2832,7 +2987,11 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
                   unbatched_frame_ms_median=float(np.median(single_frame_ms)),
                   fps_batched=fps_batched, fps_sequential=fps_seq, peak_device_MiB=peak_mb,
                   kernels_per_batched_step=k_batched, kernels_per_unbatched_frame=k_single,
-                  real_searches=n_real,
+                  real_searches=n_real, pose_lm_launches=lm_batched,
+                  pose_lm_launches_unbatched=lm_single, pose_lm_gaps=lm_gaps,
+                  pose_lm_ms=lm_ms, pose_lm_cold_ms=lm_cold, pose_lm_twin_ms=lm_twin,
+                  pose_lm_bound_ms=lm_bound, pose_lm_bound_by=lm_by,
+                  pose_lm_bound_detail=lm_detail,
                   kernel_ms_by_radius={f"{r:g}": k_ms[r] for r in RADII},
                   kernel_cold_ms_by_radius={f"{r:g}": k_cold[r] for r in RADII},
                   plain_ms_by_radius={f"{r:g}": k_plain[r] for r in RADII},
@@ -2841,7 +3000,9 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
                             dn=dn_mesh, bit_equal=exact),
                   seconds=time.time() - t0)
     record = dict(launches=launches_batched, ms=k_ms[15.0], plain_ms=k_plain[15.0],
-                  bound_ms=k_bound[15.0][0], bound_by=k_bound[15.0][1])
+                  bound_ms=k_bound[15.0][0], bound_by=k_bound[15.0][1],
+                  pose_lm=dict(max_abs_err=lm_gaps["dP_m"], ms=lm_ms, plain_ms=lm_twin,
+                               bound_ms=lm_bound, bound_by=lm_by))
     return detail, record, max_err
 
 
@@ -2894,14 +3055,17 @@ BENCH_GBA_ITERS = 2         # part A's LM iterations in the phase "bench" (bench
 def bench_phase(dev):
     """The phase "bench" (see the module docstring). Returns (detail dict,
     launches of the frame steps, launches of the batched steps, max
-    kernel-vs-twin error on their real searches)."""
+    kernel-vs-twin error on their real searches); the detail's lm_launches
+    counts the pose LM kernel's, two a frame step and two a batched step."""
     from mc_slam_tpu_torch.tools import bench, bench_scaling
     t0 = time.time()
     sz = bench.FULL
     n = BENCH_CALLS
+    pose_lm_cuda.pose_only_visual_lm.launches = 0
     sub, det = bench.run_workloads(sz, dev, n_frame=n, n_ex=n, n_ba=n, n_batched=n, n_hm=n,
                                    profile=False)
     launches = det["launches"]
+    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     _phase("bench", f"frame step ({sz['W']}x{sz['H']}, {sz['n_feat']} features, "
                     f"{sz['n_levels']} levels, {sz['n_mp']}-point map): "
                     f"{sub['frame_tracking_ms']:.2f} ms ({sub['frame_tracking_fps']:.2f} "
@@ -2918,6 +3082,9 @@ def bench_phase(dev):
     _phase("bench", f"speed of light: {json.dumps(sub['speed_of_light'])}")
     if launches["frame_step"] != 2 * (n + 2) or launches["batched_step"] != 2 * (n + 2):
         raise AssertionError(f"kernel launches {launches}")
+    if lm_launches != 4 * (n + 2):
+        raise AssertionError(f"pose LM kernel launches {lm_launches} in {n + 2} frame steps "
+                             f"and {n + 2} batched steps")
     check_cost_curve("window VI BA", det["vi_ba_costs"])
     check_cost_curve("IDP window BA", det["vi_ba_idp_costs"])
     # the kernel on the searches the first frame step and the first batched step made
@@ -2935,7 +3102,7 @@ def bench_phase(dev):
                     f"{a['measured_iter_ms_1dev']:.1f} ms an iteration (one cold call), peak "
                     f"{a['peak_device_MiB']:.0f} MiB; cost {a['costs'][0]:.1f} -> "
                     f"{a['costs'][-1]:.1f} ({time.time() - t0:.1f} s)")
-    detail = {"sub": sub, "launches": launches, "part_a": a}
+    detail = {"sub": sub, "launches": launches, "lm_launches": lm_launches, "part_a": a}
     return detail, launches["frame_step"], launches["batched_step"], err
 
 
@@ -3109,11 +3276,12 @@ def main():
     run_slice(m, dataclasses.replace(seq, imgs=seq.imgs[:3], imu=seq.imu[:3]),
               dataclasses.replace(p, n_frames=3), cam, ext, dev)
     rec = SearchRecorder(keep_frames=3, timed=True)
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
     res = run_slice(m, seq, dataclasses.replace(p, n_frames=PATH1_FRAMES + 1), cam, ext, dev,
                     recorder=rec, timed=True)
     launches_loc = hamming_top2_windowed.launches
+    lm_loc = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
     n_loc = PATH1_FRAMES
     summ = res["summary"]
@@ -3146,10 +3314,11 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rec2 = SearchRecorder(keep_frames={0, 9, 19}, timed=False)
-    hamming_top2_windowed.launches = 0
+    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
     res2 = run_track_and_map(seq, p, cam, ext, dev, recorder=rec2)
     launches_map = hamming_top2_windowed.launches
+    lm_map = pose_lm_cuda.pose_only_visual_lm.launches
     wall2 = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for e in res2["events"]:
@@ -3306,6 +3475,18 @@ def main():
                        f"\"bench\": {launches_bench} (frame steps) + {launches_bench_b} "
                        f"(batched steps)")
     launches_paths += sum(launches_async) + launches_evict + launches_bench
+    lm_paths = {"path1": lm_loc, "path2": lm_map, "path3": detail3["lm_launches"],
+                "path4": detail4["lm_launches"], "path5": detail5["lm_launches"],
+                "checkpoint": ck["lm_launches"], "path6": detail6["lm_launches"],
+                "path7": detail7["lm_launches"],
+                **{f"async {k}": detail_as[k]["lm_launches"] for k in ("A", "B", "C")},
+                "evict": detail_ev["lm_launches"],
+                "multiseq": detail_ms["pose_lm_launches"]
+                + detail_ms["pose_lm_launches_unbatched"],
+                "bench": detail_bench["lm_launches"]}
+    _phase("launches", "pose LM kernel by path and phase (no timing or check launches): "
+                       + ", ".join(f"{k} {v}" for k, v in lm_paths.items())
+                       + f" = {sum(lm_paths.values())}")
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -3321,7 +3502,16 @@ def main():
         "launches": rec_ms["launches"] + launches_bench_b,
         "max_abs_err": max(err_ms, err_bench), "ms": rec_ms["ms"],
         "plain_ms": rec_ms["plain_ms"], "bound_ms": rec_ms["bound_ms"],
-        "bound_by": rec_ms["bound_by"], "library_ms": None}]}
+        "bound_by": rec_ms["bound_by"], "library_ms": None}, {
+        "name": "pose_only_visual_lm", "route": "cuda", "source": POSE_LM_SOURCE,
+        "replaces": None,
+        "shape": f"B={len(MULTISEQ_STARTS)} x O={p.n_feat} x Np={p.max_mp}, "
+                 f"{MULTISEQ_ITERS} iterations (phase multiseq's timed solve); every "
+                 "path's pose_only_visual on the card",
+        "launches": sum(lm_paths.values()),
+        "max_abs_err": rec_ms["pose_lm"]["max_abs_err"], "ms": rec_ms["pose_lm"]["ms"],
+        "plain_ms": rec_ms["pose_lm"]["plain_ms"], "bound_ms": rec_ms["pose_lm"]["bound_ms"],
+        "bound_by": rec_ms["pose_lm"]["bound_by"], "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
     detail = {"card": smi, "kernel_ms_by_radius": {f"{r:g}": kernel_ms[r] for r in RADII},
               "kernel_cold_ms_by_radius": {f"{r:g}": cold_ms[r] for r in RADII},

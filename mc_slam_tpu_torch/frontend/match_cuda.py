@@ -20,22 +20,14 @@ gives the Pallas grid), the twin as one batched tensor program.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 
 import torch
 
+from mc_slam_tpu_torch.utils import cuda_build
+
 BIG = 10_000
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCE = _CSRC / "hamming_top2_windowed.cu"
-_BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_SOURCE = cuda_build.CSRC / "hamming_top2_windowed.cu"
 
 
 def hamming_top2_windowed_ref(a_pm1, a_uv, a_lvl, a_valid, b_pm1, b_uv, b_lvl,
@@ -59,72 +51,16 @@ def hamming_top2_windowed_ref(a_pm1, a_uv, a_lvl, a_valid, b_pm1, b_uv, b_lvl,
     return best.to(torch.int32), second.to(torch.int32), idx.to(torch.int32)
 
 
-def _find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    homes = [os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH")]
-    try:
-        from torch.utils.cpp_extension import CUDA_HOME
-        homes.append(CUDA_HOME)
-    except ImportError:
-        pass
-    homes.append("/usr/local/cuda")
-    for h in homes:
-        if h and (Path(h) / "bin" / "nvcc").is_file():
-            return str(Path(h) / "bin" / "nvcc")
-    raise RuntimeError("nvcc not found on PATH, CUDA_HOME or "
-                       "torch.utils.cpp_extension.CUDA_HOME: cannot build "
-                       "the hamming_top2_windowed kernel")
+def build_library():
+    """Build (or find) csrc/hamming_top2_windowed.cu's library; its path."""
+    return cuda_build.build_library(_SOURCE)
 
 
-def build_library() -> Path:
-    """Compile csrc/hamming_top2_windowed.cu into _build/<hash>/ unless that
-    build exists. The directory name hashes the source and the flags, so an
-    edited source rebuilds. Returns the shared library's path."""
-    src = _SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out_dir = _BUILD_ROOT / key
-    lib = out_dir / "libhamming_top2_windowed.so"
-    if lib.is_file():
-        return lib
-    out_dir.mkdir(parents=True, exist_ok=True)
-    nvcc = _find_nvcc()
-    with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = Path(tmp.name)
-    try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp_path), str(_SOURCE)],
-                              capture_output=True, text=True, check=False)
-        (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp_path, lib)
-    finally:
-        tmp_path.unlink(missing_ok=True)
-    return lib
-
-
-class _Library:
-    """The loaded kernel library; built and loaded on first launch only."""
-
-    def __init__(self):
-        self._fn = None
-
-    def launch_fn(self):
-        if self._fn is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.hamming_top2_windowed_launch_batched
-            p = ctypes.c_void_p
-            fn.argtypes = [p, p, p, p, p, p, p, p, ctypes.c_float, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int, p, p, p, p]
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-
-_LIB = _Library()
+_p = ctypes.c_void_p
+_LIB = cuda_build.Library(
+    _SOURCE, "hamming_top2_windowed_launch_batched",
+    [_p, _p, _p, _p, _p, _p, _p, _p, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+     ctypes.c_int, ctypes.c_int, _p, _p, _p, _p])
 
 
 def _check(name, t, dtype, shape, device):
@@ -186,7 +122,7 @@ def hamming_top2_windowed(a_desc, a_pm1, a_uv, a_lvl, a_valid,
                            ("a_uv", a_uv, 8), ("b_uv", b_uv, 8)):
         if t.data_ptr() % align:
             raise ValueError(f"{name} is not {align}-byte aligned")
-    fn = _LIB.launch_fn()
+    fn = _LIB.fn()
     outs = [torch.empty(a_desc.shape[:-1], dtype=torch.int32, device=a_desc.device)
             for _ in range(3)]
     stream = torch.cuda.current_stream(a_desc.device).cuda_stream

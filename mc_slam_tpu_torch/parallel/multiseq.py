@@ -7,8 +7,9 @@ fixed-shape, so a batch of per-sequence MapStates is a leading dim. The JAX
 package gets the batch from `jax.vmap`; here the functions on the path take
 the leading dim themselves (`extractor.extract` on (B, H, W) images,
 `tracking.track_frame_visual` on a stacked MapState), so a step launches
-about the kernels of ONE sequence, and the projection-search kernel runs the B
-problems in one launch a round (a batch axis in its grid).
+about the kernels of ONE sequence, and the projection-search kernel and the
+pose LM kernel each run the B problems in one launch a round (a batch axis
+in the search's grid, a block a problem in the LM's).
 
 One divergence: the JAX step hands the raw keypoints to tracking as ideal
 pixels, which is right only for a camera without distortion (its test's).

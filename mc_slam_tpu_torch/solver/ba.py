@@ -14,7 +14,7 @@ import torch
 
 from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import Camera
-from mc_slam_tpu_torch.solver import factors, lm
+from mc_slam_tpu_torch.solver import factors, lm, pose_lm_cuda
 
 CHI2_MONO = 5.991    # 95% quantile of chi2(2), reference's mono gate
 CHI2_STEREO = 7.815  # 95% quantile of chi2(3), reference's stereo gate
@@ -81,7 +81,26 @@ def pose_only_visual(P0, R0, pts_w, obs: VisualObs, camera: Camera,
     With a leading batch dim B (P0 (B, 3), R0 (B, 3, 3), pts_w (B, Np, 3),
     every obs field (B, O)) the B problems are solved together, each with
     its own cost, accept and damping (lm.lm_optimize's batch).
-    Returns (P, R, chi2 (O,), n_inlier), each with the batch dim."""
+    Returns (P, R, chi2 (O,), n_inlier), each with the batch dim.
+
+    CPU tensors take the plain twin `pose_only_visual_ref`; CUDA tensors
+    the kernel `pose_lm_cuda.pose_only_visual_lm` (all B problems in one
+    launch), which raises on what it does not take. Views the twin takes
+    (an expanded R0, say) reach the kernel as contiguous copies."""
+    if P0.device.type == "cpu":
+        return pose_only_visual_ref(P0, R0, pts_w, obs, camera, ext, iters, bf, rtol)
+    c = lambda t: t if t is None else t.contiguous()
+    obs = obs._replace(pt=c(obs.pt), uv=c(obs.uv), inv_sigma2=c(obs.inv_sigma2),
+                       valid=c(obs.valid), ur=c(obs.ur))
+    return pose_lm_cuda.pose_only_visual_lm(c(P0), c(R0), c(pts_w), obs, camera, ext,
+                                            iters=iters, bf=bf, rtol=rtol,
+                                            gates=(CHI2_MONO, CHI2_STEREO))
+
+
+def pose_only_visual_ref(P0, R0, pts_w, obs: VisualObs, camera: Camera,
+                         ext: factors.Extrinsics, iters: int = 40, bf=0.0, rtol: float = 0.0):
+    """`pose_only_visual` as PyTorch operators (the kernel's twin): one
+    round of lm.lm_optimize, fixed iterations, on any device."""
     if P0.dim() > 1:
         pts_o = torch.gather(pts_w, -2, obs.pt[..., None].expand(obs.pt.shape + (3,)))
         pose = lambda P, R: (P[..., None, :], R[..., None, :, :])   # against every row

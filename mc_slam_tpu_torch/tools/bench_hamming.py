@@ -41,16 +41,17 @@ import torch
 
 from mc_slam_tpu_torch.frontend import match_cuda
 from mc_slam_tpu_torch.tools import probes
+from mc_slam_tpu_torch.utils import cuda_build
 
 RADII = (4.0, 15.0, 40.0)
 ARG_KEYS = ("a_desc", "a_uv", "a_lvl", "a_valid", "b_desc", "b_uv", "b_lvl", "b_valid")
 
 
 def start_build(source: Path, defines: dict, out_dir: Path):
-    flags = [*match_cuda.NVCC_FLAGS, *[f"-D{k}={v}" for k, v in defines.items()]]
+    flags = [*cuda_build.NVCC_FLAGS, *[f"-D{k}={v}" for k, v in defines.items()]]
     key = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     lib = out_dir / f"libvariant_{key}.so"
-    proc = subprocess.Popen([match_cuda._find_nvcc(), *flags, "-o", str(lib), str(source)],
+    proc = subprocess.Popen([cuda_build.find_nvcc(), *flags, "-o", str(lib), str(source)],
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return lib, proc
 
@@ -116,7 +117,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    out_dir = match_cuda._BUILD_ROOT / "variants"
+    out_dir = cuda_build.BUILD_ROOT / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     builds = {}
     for v in args.variants.split(","):
