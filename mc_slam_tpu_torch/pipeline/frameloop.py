@@ -293,6 +293,8 @@ def _harvest_one(sys):
     s = _pull(sys, p)
     n_in = int(s[0])
     if p.mode == "vi":
+        sys.n_vi_frames += 1
+        sys.n_vi_fallbacks += bool(s[2])
         if n_in < max(6, cfg.min_track_inliers // 2):
             return _lost(sys, p, fr, 1, "vi", n_in)
     elif n_in < cfg.min_track_inliers:
@@ -338,6 +340,8 @@ def _harvest_pair(sys, p: Pending):
     s = _pull(sys, p)
     for i, fr in enumerate(p.frames):
         n_in = int(s[i][0])
+        sys.n_vi_frames += 1
+        sys.n_vi_fallbacks += bool(s[i][2])
         if n_in < max(6, cfg.min_track_inliers // 2):
             return _lost(sys, p, fr, len(p.frames) - i, "vi2", n_in)
         sys.ts.n_inliers = n_in
@@ -364,6 +368,7 @@ def _local_mapping(sys):
     after the previous event's host half, forced), tracking re-seated on the
     optimised keyframe; the host half waits for `_harvest_event`."""
     _harvest_event(sys, force=True)
+    sys.n_kf_events += 1
     det = sys.loop
     det.snapshot_ids()                  # the event scores these histograms
     mark = sys._marks("lm_", sys.event_probe)

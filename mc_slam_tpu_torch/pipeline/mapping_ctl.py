@@ -26,7 +26,8 @@ every XYZ BA carries the keyframes' u_right rows (`kf_ur`, bf = fx *
 baseline) and the association prune gates them at CHI2_STEREO; the depth
 points of a keyframe are written by `add_depth_points` (with `depth_to_world`
 and `alloc_points`, which also seed the map of a depth frame). Not covered:
-the mesh-sharded form of the chunked BA.
+the mesh-sharded form of the chunked BA. The window VI BA of an event, in
+either form, runs in the span "mapping.vi_ba" (`utils.metrics.span`).
 
 Padded window rows are never written back (the JAX package pads with copies
 of the last slot and scatters every row, so that slot is written several
@@ -35,6 +36,7 @@ send rows past `n_real` off the table.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import time
@@ -53,6 +55,7 @@ from mc_slam_tpu_torch.slam_map.mapstate import (MapState, _set_drop,
                                                  covisibility_weights)
 from mc_slam_tpu_torch.solver import ba, ba_chunked, ba_vi, ba_vi_idp, factors
 from mc_slam_tpu_torch.solver.ba_vi_idp import BAStats
+from mc_slam_tpu_torch.utils.metrics import span
 
 if TYPE_CHECKING:
     from mc_slam_tpu_torch.pipeline.system import SlamConfig
@@ -318,7 +321,8 @@ def local_ba(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
             return global_ba_chunked(m, st, cfg, cam, ext, gw, noise, window, prune=prune)
         prob = _plain_problem(st, window, [], int(math.ceil(len(window) / 8)) * 8)
     elif st.vi_inited and cfg.use_idp_ba and not st.sensor_depth:
-        return local_ba_idp(m, st, cfg, cam, ext, gw, noise, prune=prune, ba_Pw=ba_Pw)
+        with span("mapping.vi_ba"):
+            return local_ba_idp(m, st, cfg, cam, ext, gw, noise, prune=prune, ba_Pw=ba_Pw)
     elif st.vi_inited:
         prob = window_problem(st, cfg)
         if prob is not None and prob["front_broken"]:
@@ -347,9 +351,10 @@ def local_ba(m: MapState, st: MappingState, cfg: SlamConfig, cam: Camera,
         edges = ba_vi.edges_from_map(m.kf_preint, ks, packed[1], packed[2], packed[3],
                                      noise.sigma_bg, noise.sigma_ba)
         ns_w = NavState(*[a[ks] for a in m.kf_ns])
-        ns2, pts2, chi2, cost, costs = ba_vi.vi_ba(
-            ns_w, m.mp_pos, obs, edges, cam, ext, gw, free_t, pt_mask, prior=prior,
-            iters=BA_ITERS, bf=bf, rtol=rtol, two_phase=not force_all)
+        with span("mapping.vi_ba") if not force_all else contextlib.nullcontext():
+            ns2, pts2, chi2, cost, costs = ba_vi.vi_ba(
+                ns_w, m.mp_pos, obs, edges, cam, ext, gw, free_t, pt_mask, prior=prior,
+                iters=BA_ITERS, bf=bf, rtol=rtol, two_phase=not force_all)
         kf_ns2 = NavState(*[_set_drop(full, ks_real, w) for full, w in zip(m.kf_ns, ns2)])
     else:
         P2, R2, pts2, chi2, cost, costs = ba.visual_ba(

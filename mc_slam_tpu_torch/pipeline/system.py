@@ -46,6 +46,14 @@ window BA takes its XYZ form. With and without the IMU.
 `enable_mesh` shards the whole-map VI BA and the essential graph over a
 device mesh (`parallel/`).
 
+Under `utils.metrics.tracing(T)` every stage the system opens on its
+`timers` ("track", "extract", "lm_*", ...) is also a span of `T`, and the
+spans of the library code it calls ("tracking.search", "imu.preintegrate",
+"mapping.event", "mapping.vi_ba", ...) nest under them; with no timer
+active, `timers` records as before and nothing else does. The counters
+`n_vi_frames`, `n_vi_fallbacks` (VI frames that took the visual fallback's
+answer), `n_kf_events` and `n_lost_frames` count what the calls did.
+
 Also here: the monocular two-view bootstrap `try_initialize`
 (SlamSystem._try_initialize), as a module function of explicit state.
 """
@@ -72,7 +80,7 @@ from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
 from mc_slam_tpu_torch.solver import factors
 from mc_slam_tpu_torch.solver.factors import Extrinsics
-from mc_slam_tpu_torch.utils.metrics import StageTimer
+from mc_slam_tpu_torch.utils.metrics import StageTimer, span
 
 
 @dataclasses.dataclass
@@ -241,7 +249,8 @@ class SlamSystem:
     `global_refine`, `reset`, `set_localization_mode`, and the attributes
     `state`, `m`, `vi_inited`, `gw`, `kf_slots`, `n_kf`, `frame_id`,
     `LAG_MIN`, `LAG_MAX`, `PAIR`,
-    `n_lost_frames`, `events`, `timers`, `traj`, `last_ns`, `last_pose`,
+    `n_lost_frames`, `n_vi_frames`, `n_vi_fallbacks`, `n_kf_events`, `events`,
+    `timers`, `traj`, `last_ns`, `last_pose`,
     `viinit_log`, `loop`, `enable_loop_closing`, `n_loops_closed`,
     `loop_edges`, `reloc_buf`, `reloc_window`, `sensor_depth`, `mesh`, `mesh_e`;
     `enable_mesh`; `io.checkpoint.save_system` / `load_system` persist and
@@ -271,6 +280,9 @@ class SlamSystem:
         self.frame_id = 0
         self.last_time = 0.0
         self.n_lost_frames = 0
+        self.n_vi_frames = 0            # frames through the VI frame program
+        self.n_vi_fallbacks = 0         # ... that took the visual fallback's answer
+        self.n_kf_events = 0            # keyframe events
         # diagnostic log: (frame_id, kind, detail) for "init", "vi_init",
         # "kf_culled", "lost", "reloc", "lc_diag", "sim3_dispatch",
         # "sim3_result", "verify_result", "loop"
@@ -640,11 +652,14 @@ class SlamSystem:
             self.m, out = tracking_ctl.track_vi(
                 self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
                 self.noise, self._consts, **kw)
+            self.n_vi_frames += 1
+            self.n_vi_fallbacks += bool(out.used_fallback)
         else:
             self.m, out = tracking_ctl.track_visual(
                 self.m, st, cfg, self.ts, img, t, self.frame_id, rows, self.cam, self.ext,
                 self.noise, vi_mark=self._marks("vi_", self.vi_probe),
                 vi_log=self.viinit_log, generator=self._gen, **kw)
+        self.n_kf_events += out.keyframe is not None
         self.last_outcome = out
         if out.state == LOST:
             self.state = LOST
@@ -687,6 +702,7 @@ class SlamSystem:
                 self.m, st, self.cfg, ts, feats, uv, t, self.frame_id, feat_mp, n_in, self.cam,
                 self.ext, self.noise, self._marks("lm_", self.event_probe),
                 not self.localization_only, self.event_kw, self._loopctx, fd)
+            self.n_kf_events += slot is not None
         self.m, vi = tracking_ctl.vi_init_tail(
             self.m, st, self.cfg, ts, t, self.cam, self.ext, self.noise,
             self._marks("vi_", self.vi_probe), self.viinit_log)
@@ -717,16 +733,18 @@ class SlamSystem:
         if self.localization_only or not tracking_ctl.need_new_kf(
                 self.m, st, cfg, self.frame_id, n_in, ts.reloc_buf is not None):
             return None, None
-        with self.timers.stage("local_mapping"):
-            self.m, slot = tracking_ctl.create_keyframe(
-                self.m, st, cfg, ts, feats, uv, t, self.frame_id, feat_mp, self.noise,
-                detector=self.loop, ur=None if fd is None else fd.ur)
-            if fd is not None:
-                self.m = mapping_ctl.add_depth_points(self.m, cfg, self.cam, self.ext, slot,
-                                                      feats, uv, fd.depth, self.frame_id)
-            frameloop._local_mapping(self)
-        with self.timers.stage("loop_closing"):
-            closed = frameloop.close_loop_now(self, slot)
+        with span("mapping.event"):
+            with self.timers.stage("local_mapping"):
+                self.m, slot = tracking_ctl.create_keyframe(
+                    self.m, st, cfg, ts, feats, uv, t, self.frame_id, feat_mp, self.noise,
+                    detector=self.loop, ur=None if fd is None else fd.ur)
+                if fd is not None:
+                    self.m = mapping_ctl.add_depth_points(self.m, cfg, self.cam, self.ext,
+                                                          slot, feats, uv, fd.depth,
+                                                          self.frame_id)
+                frameloop._local_mapping(self)
+            with self.timers.stage("loop_closing"):
+                closed = frameloop.close_loop_now(self, slot)
         frameloop.invalidate(self)
         return slot, closed
 

@@ -288,13 +288,14 @@ def _vi_frame_body(m: MapState, img, rawp, cam, ext, noise, ns_last, gw,
                    prior_last, pfm, pan, anchor_slot, dt_f, fresh_prior_fb,
                    sigma_bg, sigma_ba, n_features, n_levels, iters, rtol,
                    fb_min_inliers, frame=None, feat_ur=None, bf=0.0):
-    """One VI frame: ORB extraction, undistortion, IMU prediction,
-    track_frame_vi, and the wide-window visual fallback (mono rows only, as
-    the JAX package's).
+    """One VI frame: ORB extraction, undistortion, IMU prediction (the span
+    "imu.preintegrate"), track_frame_vi, and the wide-window visual fallback
+    (mono rows only, as the JAX package's).
     Returns (feats, uv, ns_f, fmp_f, Hp_f, fv, traj, summary_row)."""
     feats, uv = _extracted(img, cam, frame, n_features, n_levels)
-    pre_last_cur = preintegrate(rawp, ns_last.bg_full, ns_last.ba_full, noise)
-    ns_cur0 = predict_navstate(ns_last, pre_last_cur, gw)
+    with span("imu.preintegrate"):
+        pre_last_cur = preintegrate(rawp, ns_last.bg_full, ns_last.ba_full, noise)
+        ns_cur0 = predict_navstate(ns_last, pre_last_cur, gw)
     ns2, feat_mp, n_m, n_in, H_marg = track_frame_vi(
         m, feats, uv, cam, ext, ns_cur0, ns_last, pre_last_cur, gw, prior_last,
         iters=iters, sigma_bg=sigma_bg, sigma_ba=sigma_ba, feat_ur=feat_ur, bf=bf,

@@ -39,6 +39,7 @@ from mc_slam_tpu_torch.pipeline.trajstore import TrajStore
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, observation_counts
 from mc_slam_tpu_torch.solver import ba_vi, factors
 from mc_slam_tpu_torch.solver.ba import VisualObs
+from mc_slam_tpu_torch.utils.metrics import span
 
 if TYPE_CHECKING:
     from mc_slam_tpu_torch.pipeline.system import SlamConfig
@@ -238,17 +239,19 @@ def _keyframe_tail(m, st, cfg, ts, feats, uv, t, fid, feat_mp, n_in, cam, ext, n
                    event_timer, allow_kf, event_kw, loop, depth=None):
     """The keyframe decision every tracked frame ends in: when `need_new_kf`
     says so the frame becomes a keyframe (with a depth frame's u_right table
-    and depth points) and runs its event.
+    and depth points) and runs its event, all in the span "mapping.event".
     Returns (m, slot or None, EventResult or None, LoopOutcome or None)."""
     if not (allow_kf and need_new_kf(m, st, cfg, fid, n_in, ts.reloc_buf is not None)):
         return m, None, None, None
-    m, slot = create_keyframe(m, st, cfg, ts, feats, uv, t, fid, feat_mp, noise,
-                              detector=loop.detector if loop is not None else None,
-                              ur=None if depth is None else depth.ur)
-    if depth is not None:
-        m = mapping_ctl.add_depth_points(m, cfg, cam, ext, slot, feats, uv, depth.depth, fid)
-    m, event, closed = _event(m, st, cfg, ts, fid, cam, ext, noise, event_timer,
-                              event_kw or {}, loop)
+    with span("mapping.event"):
+        m, slot = create_keyframe(m, st, cfg, ts, feats, uv, t, fid, feat_mp, noise,
+                                  detector=loop.detector if loop is not None else None,
+                                  ur=None if depth is None else depth.ur)
+        if depth is not None:
+            m = mapping_ctl.add_depth_points(m, cfg, cam, ext, slot, feats, uv, depth.depth,
+                                             fid)
+        m, event, closed = _event(m, st, cfg, ts, fid, cam, ext, noise, event_timer,
+                                  event_kw or {}, loop)
     return m, slot, event, closed
 
 

@@ -13,7 +13,10 @@ mc_slam_tpu/utils/metrics.py).
     device gaps to the stages.
   * tracing / span: library code opens `span(name)`, a stage of the timer
     made active by `with tracing(timer):`; with no active timer it is one
-    shared no-op context (no event, no range, no record).
+    shared no-op context (no event, no range, no record). While a timer is
+    active, every stage of another timer (SlamSystem's `timers`, say) is
+    also a stage of the active one, so the library's spans nest under the
+    caller's stages there; with none active a timer's stages are its own.
   * VIInitLog: the reference's diagnostic file set (scale.txt, biasg.txt,
     biasa.txt, gw.txt, condnum.txt, computetime.txt, Rwi.txt) written from
     VIInitResult records, format-compatible with plotinit.py.
@@ -60,7 +63,12 @@ class StageTimer:
     def stage(self, name):
         parent = self._open[-1] if self._open else None
         self._open.append(name)
-        with record_function(name) if _profiler_enabled() else _OFF:
+        tracer = _ACTIVE.get()
+        if tracer is not None and tracer is not self:
+            ctx = tracer.stage(name)        # the active timer's stage opens the range
+        else:
+            ctx = record_function(name) if _profiler_enabled() else _OFF
+        with ctx:
             if self.cuda:
                 s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 s.record()
