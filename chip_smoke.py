@@ -216,7 +216,15 @@ Every path and phase that tracks frames also counts the pose LM kernel's
 launches from 0 and, where it knows how many frames it tracked visually,
 fails unless there were at least 2 a frame; the line "[launches]" gives
 them by path, with no timing or check launch among them, and their sum is
-the kernel's "launches" in the record.
+the kernel's "launches" in the record. The same paths and phases count the
+VI pose LM kernel's launches (`solver/pose_vi_lm_cuda.py`) and the VI
+frame programs they ran, and fail unless there were exactly 2 a VI frame
+(none where no frame used the IMU); path 3 holds that kernel to its twin
+(`ba_vi.pose_only_vi_ref`) on its first 10 VI solves and path 7 on its
+first 10 stereo ones, within the POSE_VI_LM_* tolerances (state, chi2,
+inliers, marginal), and path 3 prints its warm / cold times beside its
+twin's and its bound; a second "[launches]" line gives them by path, and
+their sum is that kernel's "launches" in the record.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -253,7 +261,7 @@ from mc_slam_tpu_torch.pipeline.pipebase import LOST, OK
 from mc_slam_tpu_torch.sim import MavTrajectory, RoomWorld
 from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix, empty_map,
                                                  observation_counts)
-from mc_slam_tpu_torch.solver import ba, ba_vi, factors, pose_lm_cuda
+from mc_slam_tpu_torch.solver import ba, ba_vi, factors, pose_lm_cuda, pose_vi_lm_cuda
 from mc_slam_tpu_torch.tools.eval_clone import PROFILE_CONFIG, eviction_watch
 from mc_slam_tpu_torch.tools.probes import SearchRecorder, time_cuda, time_cuda_cold
 
@@ -268,6 +276,7 @@ TRUE_BA = np.array([0.035, -0.02, 0.06])
 KERNEL_SOURCE = "mc_slam_tpu_torch/csrc/hamming_top2_windowed.cu"
 KERNEL_REPLACES = "mc_slam_tpu/frontend/match_pallas.py:100"
 POSE_LM_SOURCE = "mc_slam_tpu_torch/csrc/pose_lm.cu"
+POSE_VI_LM_SOURCE = "mc_slam_tpu_torch/csrc/pose_vi_lm.cu"
 RADII = (4.0, 15.0, 40.0)
 RMSE_LIMIT_LOC = 0.02       # m, path 1 (tracking against a ground-truth map)
 PATH1_FRAMES = 10           # frames path 1 tracks
@@ -1491,10 +1500,11 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
     src_kf, srcs, times, rows = resume_feed(st2, rv, seq, first, n_frames)
     frame_ms, n_ok = [], 0
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
-    for j, i in enumerate(srcs):
-        ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows[j]), cuda)
-        frame_ms.append(ms)
-        n_ok += int(ok)
+    with vi_lm_watch() as vw:
+        for j, i in enumerate(srcs):
+            ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows[j]), cuda)
+            frame_ms.append(ms)
+            n_ok += int(ok)
     launches = hamming_top2_windowed.launches
     lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     tr = [x for x in new.get_trajectory() if x[0] >= times[0] - 1e-6]
@@ -1505,6 +1515,7 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
                              f"{new.n_lost_frames} lost")
     if cuda and launches < 2 * n_frames:     # the CPU runs the twin: nothing launches
         raise AssertionError(f"kernel launched {launches} times for {n_frames} frames")
+    check_vi_lm_launches("checkpoint", vw, cuda)
     if not ate["rmse"] < RELOC_POS_TOL:
         raise AssertionError(f"ATE over the resumed frames {ate}")
     return dict(path=path if keep_dir is not None else None, save_ms=save_ms, load_ms=load_ms,
@@ -1513,7 +1524,7 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
                 broken_chain_slots=sorted(st.broken_chain_slots), free_slots=list(st.free_slots),
                 n_hist_ids=len(slam.loop.hist_ids), traj_rows=len(tr_b), resume_kf=k,
                 resume_src=src_kf, frames=srcs, n_tracked=n_ok, launches=launches,
-                lm_launches=lm_launches,
+                lm_launches=lm_launches, vi_lm_launches=vw["launches"], vi_frames=vw["frames"],
                 frame_ms_median=float(np.median(frame_ms)), ate=ate,
                 keyframes_after=new.n_kf - slam.n_kf)
 
@@ -1590,7 +1601,7 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
         match_cuda.hamming_top2_windowed = recorder
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     try:
-        with sync_watch(cuda) as caught:
+        with sync_watch(cuda) as caught, vi_lm_watch() as vw:
             t0 = time.perf_counter()
             oks = _feed(slam, seq, srcs, times, rows, recorder, frame_ms)
             sync()
@@ -1598,6 +1609,7 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
             n_sync = count_syncs(caught)
     finally:
         match_cuda.hamming_top2_windowed = orig
+    check_vi_lm_launches(f"async {lag_max}/{pair}", vw, cuda)
     launches = hamming_top2_windowed.launches
     lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else float("nan")
@@ -1612,6 +1624,7 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
                frame_ms_median=float(np.median(frame_ms)),
                frame_ms_p90=float(np.percentile(frame_ms, 90)), wall_s=wall, fps=n / wall,
                launches=launches, launches_per_frame=launches / n, lm_launches=lm_launches,
+               vi_lm_launches=vw["launches"], vi_frames=vw["frames"],
                syncs_per_frame=n_sync / n,
                pulls=pulls, max_depth=fl.max_depth, dispatched=dict(fl.n_dispatched),
                ev_chain_drain_ms=[1e3 * x for x in smp.get("ev_chain_drain", [])],
@@ -1676,28 +1689,32 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
     match_cuda.hamming_top2_windowed = chk
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.perf_counter()
-    try:
-        fid_blank, j = slam.frame_id, 0
-        while not (slam.fl.pendings and slam.fl.pendings[0].frames[0]["frame_id"] == fid_blank
-                   and len(slam.fl.pendings) >= slam.LAG_MAX):
-            slam.track(blank if j == 0 else seq.imgs[srcs[j]], times[j], rows[j])
-            j += 1
-        n_before, t = j, times[j - 1]
-        k, i_reloc, n_after = 0, None, slam.reloc_window + pair * n_pairs
-        while i_reloc is None or k <= i_reloc + n_after:
-            t += fdt
-            slam.track(seq.imgs[src_reloc + k], t, seq.imu[src_reloc + k])
-            if i_reloc is None and slam.reloc_buf is not None:
-                i_reloc, lost_after = k, slam.n_lost_frames
-            elif i_reloc is None and k + 1 >= RELOC_MAX_FRAMES:
-                raise AssertionError(f"transition: no relocalization within "
-                                     f"{RELOC_MAX_FRAMES} frames from source frame {src_reloc}")
-            k += 1
-        slam.flush()
-        if cuda:
-            torch.cuda.synchronize()
-    finally:
-        match_cuda.hamming_top2_windowed = orig
+    with vi_lm_watch() as vw:
+        try:
+            fid_blank, j = slam.frame_id, 0
+            while not (slam.fl.pendings
+                       and slam.fl.pendings[0].frames[0]["frame_id"] == fid_blank
+                       and len(slam.fl.pendings) >= slam.LAG_MAX):
+                slam.track(blank if j == 0 else seq.imgs[srcs[j]], times[j], rows[j])
+                j += 1
+            n_before, t = j, times[j - 1]
+            k, i_reloc, n_after = 0, None, slam.reloc_window + pair * n_pairs
+            while i_reloc is None or k <= i_reloc + n_after:
+                t += fdt
+                slam.track(seq.imgs[src_reloc + k], t, seq.imu[src_reloc + k])
+                if i_reloc is None and slam.reloc_buf is not None:
+                    i_reloc, lost_after = k, slam.n_lost_frames
+                elif i_reloc is None and k + 1 >= RELOC_MAX_FRAMES:
+                    raise AssertionError(f"transition: no relocalization within "
+                                         f"{RELOC_MAX_FRAMES} frames from source frame "
+                                         f"{src_reloc}")
+                k += 1
+            slam.flush()
+            if cuda:
+                torch.cuda.synchronize()
+        finally:
+            match_cuda.hamming_top2_windowed = orig
+    check_vi_lm_launches("transition", vw, cuda)
     wall = time.perf_counter() - t0
     launches = hamming_top2_windowed.launches
     lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
@@ -1715,7 +1732,7 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
                kf_after=[f for f in ids if closing is not None and f > closing],
                epoch=slam.fl.map_epoch, pending_after_flush=len(slam.fl.pendings),
                dispatched=dict(slam.fl.n_dispatched), launches=launches,
-               lm_launches=lm_launches,
+               lm_launches=lm_launches, vi_lm_launches=vw["launches"], vi_frames=vw["frames"],
                twin_checked=chk.n, twin_max_err=chk.max_err, wall_s=wall)
     if len(lost) != 1 or out["lost_mode"] != "vi2" or len(reloc) != 1:
         raise AssertionError(f"transition: {len(lost)} lost events ({out['lost_mode']}), "
@@ -2160,7 +2177,8 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
     rec = SearchRecorder(keep_frames={110, 120, 130}, timed=False)
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
-    res, watch = run_evict(seq, p, cam, dev, recorder=rec)
+    with vi_lm_watch() as vw:
+        res, watch = run_evict(seq, p, cam, dev, recorder=rec)
     launches = hamming_top2_windowed.launches
     lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
@@ -2192,6 +2210,7 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
                                                      "max_kf", "max_mp", "vi_init_time",
                                                      "n_vi_frames")},
               "frames": len(fr), "launches": launches, "lm_launches": lm_launches,
+              "vi_lm_launches": vw["launches"], "vi_frames": vw["frames"],
               "accepted_at_frame": res["i_accept"],
               "kf_evictions": watch["kf"], "mp_evictions": watch["mp"],
               "keyframes_inserted": slam.n_kf, "keyframes_culled": res["n_culled_kf"],
@@ -2201,6 +2220,7 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
     err = 0
     if check:
         check_lm_launches("evict", lm_launches, sum(not f["vi"] for f in fr))
+        check_vi_lm_launches("evict", vw, True)
         measured = check_evict(res, watch, seq, p)
         detail["measured"] = measured
         err, n_real = _real_search_check(rec)
@@ -2228,7 +2248,8 @@ def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
                          timed=False)
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
-    res = run_depth(seq, p, cam, dev, right=right, recorder=rec)
+    with vi_lm_watch(keep=VI_LM_CHECK_SOLVES if stereo else 0) as vw:
+        res = run_depth(seq, p, cam, dev, right=right, recorder=rec)
     launches = hamming_top2_windowed.launches
     lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
@@ -2274,12 +2295,15 @@ def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
         raise AssertionError(f"kernel launched {launches} times for {len(fr)} frames")
     # frame 0 initializes from depth and is not tracked
     check_lm_launches(name, lm_launches, sum(not f["vi"] for f in fr[1:]))
+    check_vi_lm_launches(name, vw, True)
+    vi_check = vi_lm_phase_check(name, vw["calls"]) if vw["calls"] else None
     err, n_real = _real_search_check(rec)
     _phase(name, f"kernel == twin on the {n_real} real searches of "
                  + ("the first frame and the first VI frame" if stereo else "3 frames"))
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
     detail = {"frames": len(fr), "launches": launches, "lm_launches": lm_launches,
-              "measured": measured,
+              "vi_lm_launches": vw["launches"], "vi_frames": vw["frames"],
+              "vi_lm_check": vi_check, "measured": measured,
               "events": [strip(e) for e in res["events"]], "attempts": res["attempts"],
               "accepted_at_frame": res["i_accept"], "keyframes_inserted": slam.n_kf,
               "frame_ms_median": float(np.median(vis_ms)),
@@ -2422,9 +2446,11 @@ def _real_search_check(rec):
     return max_err, len(rec.calls)
 
 
-def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
+def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False, vi_check=False):
     """One run of `run_bootstrap` on the card with its report lines and
-    checks (paths 3 and 4); with `refine` also `run_refine_and_chunked`.
+    checks (paths 3 and 4); with `refine` also `run_refine_and_chunked`;
+    with `vi_check` the VI pose LM kernel held to its twin on the run's
+    first VI solves, and timed (`vi_lm_phase_check`).
     Returns (detail dict, kernel launches of the run, max kernel-vs-twin
     error on the recorded searches, `run_bootstrap`'s dict with the system)."""
     torch.cuda.synchronize()
@@ -2432,7 +2458,8 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
     rec = SearchRecorder(keep_frames=(), timed=False)
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
-    res = run_bootstrap(seq, p, cam, dev, recorder=rec)
+    with vi_lm_watch(keep=VI_LM_CHECK_SOLVES if vi_check else 0) as vw:
+        res = run_bootstrap(seq, p, cam, dev, recorder=rec)
     launches = hamming_top2_windowed.launches
     lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
     wall = time.time() - t0
@@ -2488,11 +2515,15 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False):
     if launches < 2 * n_boot:
         raise AssertionError(f"kernel launched {launches} times for {n_boot} frames")
     check_lm_launches(name, lm_launches, sum(not f["vi"] for f in res["frames"]))
+    check_vi_lm_launches(name, vw, True)
+    vi_lm = vi_lm_phase_check(name, vw["calls"], time_it=True) if vi_check else None
     err, n_real = _real_search_check(rec)
     _phase(name, f"kernel == twin on the {n_real} real searches of one visual frame "
                  f"and one VI frame")
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
-    detail = {"frames": n_boot, "launches": launches, "lm_launches": lm_launches, "init": ini,
+    detail = {"frames": n_boot, "launches": launches, "lm_launches": lm_launches,
+              "vi_lm_launches": vw["launches"], "vi_frames": vw["frames"], "vi_lm_check": vi_lm,
+              "init": ini,
               "events": [strip(e) for e in ev], "attempts": res["attempts"],
               "accepted_at_frame": res["i_accept"], "measured": measured,
               "keyframes_inserted": slam.n_kf, "keyframes_culled": res["n_culled_kf"],
@@ -2557,7 +2588,8 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     rec = SearchRecorder(keep_frames=set(), timed=False)
     hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
     t0 = time.time()
-    rv = run_revisit(res, seq, p, REVISIT_SRC, REVISIT_FRAMES, recorder=rec)
+    with vi_lm_watch() as vw:
+        rv = run_revisit(res, seq, p, REVISIT_SRC, REVISIT_FRAMES, recorder=rec)
     wall = time.time() - t0
     fr = rv["frames"]
     lost_ms = [f["ms"] for f in fr if not f["ok"]]
@@ -2634,11 +2666,13 @@ def revisit_phase(res, seq: Sequence, p: Profile):
         raise AssertionError(f"the guided verification did not reach the kernel "
                              f"({launches_track} -> {launches} launches, {n_real} recorded)")
     check_lm_launches("path5", lm_launches, rv["n_window"])
+    check_vi_lm_launches("path5", vw, True)
     strip = lambda d: {k: (v_.tolist() if isinstance(v_, np.ndarray) else v_)
                        for k, v_ in d.items()
                        if k not in ("m_planted", "frames", "events", "measured")}
     detail = {"frames": len(fr), "launches": launches, "launches_before_loop": launches_track,
-              "lm_launches": lm_launches,
+              "lm_launches": lm_launches, "vi_lm_launches": vw["launches"],
+              "vi_frames": vw["frames"],
               "revisit": strip(rv), "loop": strip(lp), "loop_stage_kernels": kernels,
               "attempt_lost_ms": float(np.median(lost_ms)), "reloc_ms": f_reloc["ms"],
               "window_frame_ms": float(np.median(win_ms)),
@@ -2741,6 +2775,157 @@ def pose_lm_check(calls):
             or launches != len(calls)):
         raise AssertionError(f"pose LM kernel against its twin: {gaps}, {launches} launches "
                              f"for {len(calls)} solves")
+    return gaps, launches
+
+
+# the VI pose LM kernel (solver/pose_vi_lm_cuda.py) against its twin
+# (ba_vi.pose_only_vi_ref), here on recorded solves and in
+# tests/test_torch_pose_vi_lm.py (whose docstring gives the reasons): the
+# position as the visual kernel's; the rest inside the mono-vi.stream cell's
+# limits on the frame (benchmark/workloads/mono-vi.stream.json)
+POSE_VI_LM_POS_TOL = 1e-4       # m
+POSE_VI_LM_ROT_TOL = 3e-5       # rad (the cell's 0.002 deg is 3.5e-5)
+POSE_VI_LM_VEL_TOL = 4e-4       # m/s
+POSE_VI_LM_BG_TOL = 5e-5        # rad/s, the full gyro bias
+POSE_VI_LM_BA_TOL = 3e-5        # m/s^2, the full accelerometer bias
+POSE_VI_LM_MARG_RTOL = 1e-3     # H_marg, Frobenius norm of the gap over H_marg's
+
+
+VI_LM_CHECK_SOLVES = 10         # recorded VI solves a path holds to the twin (5 frames)
+# float operations of csrc/pose_vi_lm.cu counted from the source (a
+# multiply-add as two; the visual rows' as csrc/pose_lm.cu's, POSE_LM_*_OPS):
+# one linearization's 30-d system (J^T (w Lambda) 20,520, H's 465 lower
+# entries 27,900 and their 3 factor sums 1,395, g 1,800, the quadratic
+# costs ~700, the three factors' residuals and Jacobians ~1,500, the block
+# sums 7,140); one iteration's solve (damping 60, the 30x30 Cholesky ~9,460,
+# the two triangular solves 1,800, two retractions ~240); the marginal
+# (elimination ~3,300, back substitution ~3,400, the 15x15 product 6,750)
+POSE_VI_LM_SYSTEM_OPS = 61_000
+POSE_VI_LM_SOLVE_OPS = 11_560
+POSE_VI_LM_MARG_OPS = 13_450
+
+
+@contextlib.contextmanager
+def vi_lm_watch(keep=0):
+    """While entered: the VI pose LM kernel's launches counted from 0, the
+    VI frame programs run (pipeline/tracking._vi_frame_body, two
+    ba_vi.pose_only_vi solves each) and the arguments of the first `keep`
+    solves, kept by reference. Yields a dict (launches, frames, calls);
+    launches is read on exit."""
+    w = dict(launches=0, frames=0, calls=[])
+    body, solve = tracking._vi_frame_body, ba_vi.pose_only_vi
+
+    def counted(*args, **kw):
+        w["frames"] += 1
+        return body(*args, **kw)
+
+    def recorded(*args, **kw):
+        if len(w["calls"]) < keep:
+            w["calls"].append((args, kw))
+        return solve(*args, **kw)
+    pose_vi_lm_cuda.pose_only_vi_lm.launches = 0
+    tracking._vi_frame_body, ba_vi.pose_only_vi = counted, recorded
+    try:
+        yield w
+    finally:
+        tracking._vi_frame_body, ba_vi.pose_only_vi = body, solve
+        w["launches"] = pose_vi_lm_cuda.pose_only_vi_lm.launches
+
+
+def check_vi_lm_launches(name, w, cuda):
+    """Raises unless the VI pose LM kernel launched exactly twice a VI frame
+    program on the card (`vi_lm_watch`), and never on the CPU (the twin)."""
+    want = 2 * w["frames"] if cuda else 0
+    if w["launches"] != want:
+        raise AssertionError(f"{name}: the VI pose LM kernel launched {w['launches']} times "
+                             f"for {w['frames']} VI frames")
+
+
+def pose_vi_lm_bound(args, kw):
+    """The least milliseconds the card could take for one VI solve with the
+    arguments `args, kw` of ba_vi.pose_only_vi: the larger of bytes over the
+    memory rate (each input row, its gathered point, the states, the
+    preintegration, the informations, the prior and each output read or
+    written once) and operations over the float32 rate (a pass over every
+    row and a linearization a candidate, one at the start and one for the
+    marginal; a solve an iteration). Returns (bound_ms, bound_by, detail)."""
+    obs = args[4]
+    O, stereo = obs.pt.shape[-1], obs.ur is not None
+    marg, iters = int(kw.get("compute_marg", True)), kw["iters"]
+    n_bytes = (O * (8 + 8 + 4 + 4 + 12 + (4 if stereo else 0) + 4)
+               + 4 * (2 * 27 + 61 + 81 + 36 + 225 + 21 + 3 + 2) + 4 * (27 + 225) + 8)
+    passes = 1 + iters + marg
+    ops = (O * (passes * POSE_LM_ROW_OPS[stereo] + POSE_LM_FINAL_ROW_OPS[stereo])
+           + passes * POSE_VI_LM_SYSTEM_OPS + iters * POSE_VI_LM_SOLVE_OPS
+           + marg * POSE_VI_LM_MARG_OPS)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FLOAT_OPS_PER_S * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            dict(bytes=n_bytes, operations=ops, bytes_ms=t_bytes, operations_ms=t_ops))
+
+
+def vi_lm_phase_check(name, calls, time_it=False):
+    """The VI pose LM kernel against its twin on a path's recorded solves
+    (`pose_vi_lm_check`), with a report line; with `time_it`, the first
+    solve with the marginal timed (one launch warm and with a cold L2, the
+    twin, the bound). Returns a dict of what it measured."""
+    gaps, launches = pose_vi_lm_check(calls)
+    out = dict(solves=len(calls), gaps_over_tol=gaps, check_launches=launches)
+    line = (f"VI pose LM kernel against its twin on the {len(calls)} recorded solves (gap / "
+            f"tolerance: {', '.join(f'{k} {v:.3g}' for k, v in gaps.items())})")
+    if time_it:
+        args, kw = next(c for c in calls if c[1].get("compute_marg", True))
+        flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=args[3].device)
+        ms = time_cuda(lambda: ba_vi.pose_only_vi(*args, **kw))
+        cold = time_cuda_cold(lambda: ba_vi.pose_only_vi(*args, **kw), flush)
+        twin = time_cuda(lambda: ba_vi.pose_only_vi_ref(*args, **kw), n=3, warmup=1, rounds=3)
+        bound, by, bd = pose_vi_lm_bound(args, kw)
+        del flush
+        out.update(O=args[4].pt.shape[-1], Np=args[3].shape[0], iters=kw["iters"], ms=ms,
+                   cold_ms=cold, twin_ms=twin, bound_ms=bound, bound_by=by, bound_detail=bd)
+        line += (f"; O={out['O']} Np={out['Np']}, {kw['iters']} iterations with the marginal: "
+                 f"one launch {ms * 1e3:.1f} us (cold L2 {cold * 1e3:.1f} us), twin "
+                 f"{twin * 1e3:.1f} us, bound {bound * 1e3:.3f} us by {by}")
+    _phase(name, line)
+    return out
+
+
+def pose_vi_lm_gaps(got, ref):
+    """The gaps of one VI solve's answer `got` to the twin's `ref`, each over
+    its tolerance (a gap within it reads at most 1): the state's and the
+    marginal's the POSE_VI_LM_* ones, each row's chi2 and the inliers the
+    POSE_LM_* ones."""
+    (ns, chi2, n, Hm), (nr, chi2r, nrr, Hmr) = got, ref
+    d = lambda a, b: float((a.double() - b.double()).abs().max())
+    r = (chi2 - chi2r).abs() / (POSE_LM_CHI2_ATOL + POSE_LM_CHI2_RTOL * chi2r.abs())
+    r = torch.where(chi2.isnan() & chi2r.isnan(), 0.0, r).nan_to_num(nan=float("inf"))
+    Hn = float(torch.linalg.norm(Hmr.double()))
+    marg = float(torch.linalg.norm(Hm.double() - Hmr.double())) / Hn if Hn > 0 else d(Hm, Hmr)
+    return dict(dP=d(ns.P, nr.P) / POSE_VI_LM_POS_TOL,
+                dR=rot_gap_rad(ns.R, nr.R) / POSE_VI_LM_ROT_TOL,
+                dV=d(ns.V, nr.V) / POSE_VI_LM_VEL_TOL,
+                dbg=d(ns.bg + ns.dbg, nr.bg + nr.dbg) / POSE_VI_LM_BG_TOL,
+                dba=d(ns.ba + ns.dba, nr.ba + nr.dba) / POSE_VI_LM_BA_TOL,
+                dchi2=float(r.max()) if r.numel() else 0.0,
+                dn=abs(int(n) - int(nrr)) / POSE_LM_INLIER_TOL,
+                marg=marg / POSE_VI_LM_MARG_RTOL)
+
+
+def pose_vi_lm_check(calls):
+    """The kernel (ba_vi.pose_only_vi on the card) against its twin
+    (ba_vi.pose_only_vi_ref) on recorded solves; raises where a gap passes
+    its tolerance. Returns the largest gaps over their tolerances and the
+    launches the checks made."""
+    n0 = pose_vi_lm_cuda.pose_only_vi_lm.launches
+    gaps = {}
+    for args, kw in calls:
+        g = pose_vi_lm_gaps(ba_vi.pose_only_vi(*args, **kw),
+                            ba_vi.pose_only_vi_ref(*args, **kw))
+        gaps = {k: max(v, gaps.get(k, 0.0)) for k, v in g.items()}
+    launches = pose_vi_lm_cuda.pose_only_vi_lm.launches - n0
+    if any(v > 1 for v in gaps.values()) or launches != len(calls):
+        raise AssertionError(f"VI pose LM kernel against its twin (gap / tolerance): {gaps}, "
+                             f"{launches} launches for {len(calls)} solves")
     return gaps, launches
 
 
@@ -3347,7 +3532,8 @@ def main():
 
     lap("path 2")
     # ---- phase 5: path 3, bootstrap from raw frames to VI tracking (5 s init) ----
-    detail3, launches_boot, err, res3 = bootstrap_phase("path3", seq_boot, p, cam, dev)
+    detail3, launches_boot, err, res3 = bootstrap_phase("path3", seq_boot, p, cam, dev,
+                                                        vi_check=True)
     max_err = max(max_err, err)
     del res3
 
@@ -3487,6 +3673,15 @@ def main():
     _phase("launches", "pose LM kernel by path and phase (no timing or check launches): "
                        + ", ".join(f"{k} {v}" for k, v in lm_paths.items())
                        + f" = {sum(lm_paths.values())}")
+    vi_paths = {"path3": detail3, "path4": detail4, "path5": detail5, "checkpoint": ck,
+                "path6": detail6, "path7": detail7,
+                **{f"async {k}": detail_as[k] for k in ("A", "B", "C")}, "evict": detail_ev}
+    _phase("launches", "VI pose LM kernel by path and phase, against 2 a VI frame program "
+                       "(no timing or check launches): "
+                       + ", ".join(f"{k} {d['vi_lm_launches']} ({d['vi_frames']} VI frames)"
+                                   for k, d in vi_paths.items())
+                       + f" = {sum(d['vi_lm_launches'] for d in vi_paths.values())}")
+    vi3 = detail3["vi_lm_check"]
     record = {"kernels": [{
         "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
@@ -3511,7 +3706,15 @@ def main():
         "launches": sum(lm_paths.values()),
         "max_abs_err": rec_ms["pose_lm"]["max_abs_err"], "ms": rec_ms["pose_lm"]["ms"],
         "plain_ms": rec_ms["pose_lm"]["plain_ms"], "bound_ms": rec_ms["pose_lm"]["bound_ms"],
-        "bound_by": rec_ms["pose_lm"]["bound_by"], "library_ms": None}]}
+        "bound_by": rec_ms["pose_lm"]["bound_by"], "library_ms": None}, {
+        "name": "pose_only_vi_lm", "route": "cuda", "source": POSE_VI_LM_SOURCE,
+        "replaces": None,
+        "shape": f"O={vi3['O']} x Np={vi3['Np']}, {vi3['iters']} iterations with the marginal "
+                 "(path 3's timed solve); every VI frame's two ba_vi.pose_only_vi on the card",
+        "launches": sum(d["vi_lm_launches"] for d in vi_paths.values()),
+        "max_abs_err": vi3["gaps_over_tol"]["dP"] * POSE_VI_LM_POS_TOL, "ms": vi3["ms"],
+        "plain_ms": vi3["twin_ms"], "bound_ms": vi3["bound_ms"], "bound_by": vi3["bound_by"],
+        "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}
     detail = {"card": smi, "kernel_ms_by_radius": {f"{r:g}": kernel_ms[r] for r in RADII},
               "kernel_cold_ms_by_radius": {f"{r:g}": cold_ms[r] for r in RADII},

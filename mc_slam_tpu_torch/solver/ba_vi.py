@@ -19,7 +19,7 @@ from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import Camera
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import PreintState
-from mc_slam_tpu_torch.solver import factors, lm
+from mc_slam_tpu_torch.solver import ba, factors, lm, pose_vi_lm_cuda
 from mc_slam_tpu_torch.solver.ba import (VisualObs, _obs_weights, _robust_cost,
                                          obs_reproj)
 
@@ -219,7 +219,33 @@ def pose_only_vi(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState
     """Joint (last, current) frame optimization tied by the IMU PRV + bias
     edges, last frame held by its marginal prior, map points fixed.
     Returns (ns_cur, chi2 (O,), n_inliers, H_marg (15, 15)); H_marg is the
-    current frame's marginal information (last frame Schur-eliminated)."""
+    current frame's marginal information (last frame Schur-eliminated).
+
+    CPU tensors take the plain twin `pose_only_vi_ref`; CUDA tensors the
+    kernel `pose_vi_lm_cuda.pose_only_vi_lm` (the whole solve in one
+    launch), which raises on what it does not take. Views the twin takes
+    reach the kernel as contiguous copies."""
+    if ns_cur0.P.device.type == "cpu":
+        return pose_only_vi_ref(ns_cur0, ns_last, pre_last_cur, pts_w, obs, camera, ext, gw,
+                                prior_last, info_prv, info_bias, iters, compute_marg, bf, rtol)
+    c = lambda t: t if t is None else t.contiguous()
+    tup = lambda x: type(x)(*map(c, x))
+    obs = obs._replace(pt=c(obs.pt), uv=c(obs.uv), inv_sigma2=c(obs.inv_sigma2),
+                       valid=c(obs.valid), ur=c(obs.ur))
+    prior_last = PriorFactor(cam=c(prior_last.cam), ns0=tup(prior_last.ns0),
+                             info=c(prior_last.info), valid=c(prior_last.valid))
+    return pose_vi_lm_cuda.pose_only_vi_lm(
+        tup(ns_cur0), tup(ns_last), tup(pre_last_cur), c(pts_w), obs, camera, ext, c(gw),
+        prior_last, c(info_prv), c(info_bias), iters=iters, compute_marg=compute_marg, bf=bf,
+        rtol=rtol, gates=(ba.CHI2_MONO, ba.CHI2_STEREO))
+
+
+def pose_only_vi_ref(ns_cur0: NavState, ns_last: NavState, pre_last_cur: PreintState,
+                     pts_w, obs: VisualObs, camera: Camera, ext: factors.Extrinsics,
+                     gw, prior_last: PriorFactor, info_prv, info_bias,
+                     iters: int = 40, compute_marg: bool = True, bf=0.0, rtol: float = 0.0):
+    """`pose_only_vi` as PyTorch operators (the kernel's twin): one round of
+    lm.lm_optimize, fixed iterations, on any device."""
     dev, dt = ns_cur0.P.device, ns_cur0.P.dtype
     Nc = 2  # state 0 = last, state 1 = current
     ns0 = NavState(*[torch.stack([a, b]) for a, b in zip(ns_last, ns_cur0)])
