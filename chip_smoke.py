@@ -182,7 +182,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     the batched twin exactly on the step's real searches and on planted
     inputs at B=11 x 16384 x 1024, r = 4 / 15 / 40 px; the pose LM kernel
     keeps to its twin (`ba.pose_only_visual_ref`) on the step's two recorded
-    solves within the POSE_LM_* tolerances (position, rotation, each row's
+    solves within pose_lm_cuda's POSE_LM_* tolerances (position, rotation, each row's
     chi2, inliers), one launch a solve; 10 of the windows over a two-shard
     "seq" mesh on cuda:0 agree with the unsharded step as above. Prints ms per batched step (median, p90),
     aggregate frames/s against the sequential run's, launches of all kernels
@@ -208,7 +208,7 @@ Phases (one line each; any failed check raises, so the exit code is not 0):
     whole-map VI BA at 128 keyframes, 12288 points, 96 chunks) at 2
     iterations. Fails unless the kernel equals its twin on the searches of
     the first frame step and the first batched step that the workloads
-    timed (`probes.SearchRecorder` in front of the wrapper), the kernel
+    timed (`probes.search_recorder` in front of the wrapper), the kernel
     launched 2 times a frame step and 2 times a batched step, and so did the
     pose LM kernel, and every BA cost curve is finite and non-increasing;
     prints each workload's time and the launches a frame.
@@ -221,7 +221,7 @@ VI pose LM kernel's launches (`solver/pose_vi_lm_cuda.py`) and the VI
 frame programs they ran, and fail unless there were exactly 2 a VI frame
 (none where no frame used the IMU); path 3 holds that kernel to its twin
 (`ba_vi.pose_only_vi_ref`) on its first 10 VI solves and path 7 on its
-first 10 stereo ones, within the POSE_VI_LM_* tolerances (state, chi2,
+first 10 stereo ones, within pose_vi_lm_cuda's POSE_VI_LM_* tolerances (state, chi2,
 inliers, marginal), and path 3 prints its warm / cold times beside its
 twin's and its bound; a second "[launches]" line gives them by path, and
 their sum is that kernel's "launches" in the record.
@@ -263,7 +263,8 @@ from mc_slam_tpu_torch.slam_map.mapstate import (_set_drop, covisibility_matrix,
                                                  observation_counts)
 from mc_slam_tpu_torch.solver import ba, ba_vi, factors, pose_lm_cuda, pose_vi_lm_cuda
 from mc_slam_tpu_torch.tools.eval_clone import PROFILE_CONFIG, eviction_watch
-from mc_slam_tpu_torch.tools.probes import SearchRecorder, time_cuda, time_cuda_cold
+from mc_slam_tpu_torch.tools import probes
+from mc_slam_tpu_torch.tools.probes import time_cuda, time_cuda_cold
 
 # the reference's EuRoC Tbc (config/euroc.yaml:40-44)
 TBC = np.array([
@@ -273,21 +274,11 @@ TBC = np.array([
     [0.0, 0.0, 0.0, 1.0]])
 TRUE_BG = np.array([0.003, -0.0045, 0.0035])    # examples/make_euroc_clone.py
 TRUE_BA = np.array([0.035, -0.02, 0.06])
-KERNEL_SOURCE = "mc_slam_tpu_torch/csrc/hamming_top2_windowed.cu"
 KERNEL_REPLACES = "mc_slam_tpu/frontend/match_pallas.py:100"
-POSE_LM_SOURCE = "mc_slam_tpu_torch/csrc/pose_lm.cu"
-POSE_VI_LM_SOURCE = "mc_slam_tpu_torch/csrc/pose_vi_lm.cu"
 RADII = (4.0, 15.0, 40.0)
 RMSE_LIMIT_LOC = 0.02       # m, path 1 (tracking against a ground-truth map)
 PATH1_FRAMES = 10           # frames path 1 tracks
 RMSE_LIMIT_MAP = 0.03       # m, path 2 (tracking against the live map)
-# Published peaks of one H100 SXM at 700 W: 3.35 TB/s of HBM; 67 TFLOP/s of
-# float32 outside the tensor cores counts a fused multiply-add as two, so
-# compares, subtracts, XORs and popcounts issue at half of it at most.
-HBM_BYTES_PER_S = 3.35e12
-SIMPLE_OPS_PER_S = 67e12 / 2
-GATE_OPS_PER_PAIR = 8       # 2 subtracts, 2 |.|<r compares, level subtract, |.|, compare, and
-POPC_OPS_PER_PASS = 24      # 8 xor + 8 popcount + 8 adds / top-2 update
 
 
 @dataclasses.dataclass(frozen=True)
@@ -430,10 +421,7 @@ def run_slice(m, seq: Sequence, p: Profile, cam, ext, device, recorder=None,
     imgs = [torch.from_numpy(im).to(device) for im in seq.imgs]
     imus = [torch.from_numpy(np.ascontiguousarray(r)).to(device) for r in seq.imu]
     Ps, Rs, fmps, summaries, ms = [], [], [], [], []
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
-    try:
+    with recorder or contextlib.nullcontext():
         for i in range(1, p.n_frames):
             if recorder is not None:
                 recorder.frame = i - 1
@@ -459,8 +447,6 @@ def run_slice(m, seq: Sequence, p: Profile, cam, ext, device, recorder=None,
             Rs.append(ns.R)
             fmps.append(fmp)
             summaries.append(summary)
-    finally:
-        match_cuda.hamming_top2_windowed = orig
     if timed:
         torch.cuda.synchronize()
         ms = [s.elapsed_time(e) for s, e in ms]
@@ -584,10 +570,7 @@ def run_track_and_map(seq: Sequence, p: Profile, cam, ext, device, recorder=None
     imus = [torch.from_numpy(np.ascontiguousarray(r)).to(device) for r in seq.imu]
     imu_since_kf = []
     Ps, summaries, events, frame_ms = [], [], [], []
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
-    try:
+    with recorder or contextlib.nullcontext():
         for i in range(1, p.n_frames):
             if recorder is not None:
                 recorder.frame = i - 1
@@ -626,8 +609,6 @@ def run_track_and_map(seq: Sequence, p: Profile, cam, ext, device, recorder=None
             events.append(_event_record(i, slot, res, timer))
             ns = mapping_ctl.keyframe_navstate(m, slot)
             prior = ba_vi.PriorFactor(cam=c0, ns0=ns, info=fresh_1e3, valid=c1)
-    finally:
-        match_cuda.hamming_top2_windowed = orig
     P = torch.stack(Ps).cpu().numpy()
     err = np.linalg.norm(P - seq.P[1:p.n_frames], axis=1)
     return dict(P=P, summary=torch.stack(summaries).cpu().numpy(), events=events,
@@ -707,10 +688,7 @@ def run_bootstrap(seq: Sequence, p: Profile, cam, device, recorder=None):
         if cuda:
             torch.cuda.synchronize()
 
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
-    try:
+    with recorder or contextlib.nullcontext():
         # ---- monocular initialization ----
         i, init = -1, None
         while init is None:
@@ -787,9 +765,7 @@ def run_bootstrap(seq: Sequence, p: Profile, cam, device, recorder=None):
                     a["gw"] = v.gw.cpu().numpy().tolist()
                     i_accept = i
                 attempts.append(a)
-    finally:
-        match_cuda.hamming_top2_windowed = orig
-        slam.event_probe = slam.vi_probe = None
+    slam.event_probe = slam.vi_probe = None
     traj = slam.get_trajectory()
     m = slam.m
     return dict(init=init, frames=frames, events=events, attempts=attempts,
@@ -945,10 +921,7 @@ def run_revisit(res, seq: Sequence, p: Profile, src_start: int, n_replay: int,
                            keyframe=slam.last_outcome.keyframe if ok else None))
         return ok
 
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
-    try:
+    with recorder or contextlib.nullcontext():
         for j in range(n_blank):
             step(blank, seq.imu[src_start - n_blank + j], None)
         lost = [e for e in slam.events[n_ev0:] if e[1] == "lost"]
@@ -980,8 +953,6 @@ def run_revisit(res, seq: Sequence, p: Profile, src_start: int, n_replay: int,
             if i_reloc is not None and not ok:
                 raise AssertionError(f"replayed frame {src} lost after the relocalization "
                                      f"({frames[-1]})")
-    finally:
-        match_cuda.hamming_top2_windowed = orig
     if slam.reloc_buf is not None:
         raise AssertionError("the bias window did not complete")
     events = slam.events[n_ev0:]
@@ -1134,14 +1105,11 @@ def run_loop_phase(slam, revisit, spread, recorder=None, idx=None):
     loop = slam._loopctx
     loop.detector.consistent_groups = []
     n_closed0, n_ev0 = st.n_loops_closed, len(slam.events)
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
     # the revisit keyframes in the order of their events, as the live system
     # would have met the seam: the consistency streak builds from one to the
     # next, and the first closure ends the phase
     attempts = []
-    try:
+    with recorder or contextlib.nullcontext():
         for cur in revisit:
             if cuda:
                 torch.cuda.synchronize()
@@ -1157,9 +1125,7 @@ def run_loop_phase(slam, revisit, spread, recorder=None, idx=None):
                                      verify=out.verify, diag=dict(loop.detector.last_diag)))
             if out is None or out.closed is not None:
                 break
-    finally:
-        loop.probe = None
-        match_cuda.hamming_top2_windowed = orig
+    loop.probe = None
     total_ms = (time.perf_counter() - t0) * 1e3
     if out is None:
         raise AssertionError("the loop gates are shut")
@@ -1499,14 +1465,14 @@ def run_checkpoint_phase(slam, seq: Sequence, rv, first: int, n_frames: int = CK
     k = st2.last_kf_slot
     src_kf, srcs, times, rows = resume_feed(st2, rv, seq, first, n_frames)
     frame_ms, n_ok = [], 0
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     with vi_lm_watch() as vw:
         for j, i in enumerate(srcs):
             ok, ms = _timed_ms(lambda: new.track(seq.imgs[i], times[j], rows[j]), cuda)
             frame_ms.append(ms)
             n_ok += int(ok)
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     tr = [x for x in new.get_trajectory() if x[0] >= times[0] - 1e-6]
     ate = ate_rmse(np.asarray([x[0] for x in tr]), np.asarray([x[1] for x in tr]),
                    np.asarray(times), seq.P[first:first + n_frames], with_scale=True)
@@ -1596,22 +1562,17 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
     sync()
     if cuda:
         torch.cuda.reset_peak_memory_stats()
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
-    try:
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
+    with recorder or contextlib.nullcontext():
         with sync_watch(cuda) as caught, vi_lm_watch() as vw:
             t0 = time.perf_counter()
             oks = _feed(slam, seq, srcs, times, rows, recorder, frame_ms)
             sync()
             wall = time.perf_counter() - t0
             n_sync = count_syncs(caught)
-    finally:
-        match_cuda.hamming_top2_windowed = orig
     check_vi_lm_launches(f"async {lag_max}/{pair}", vw, cuda)
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20 if cuda else float("nan")
     fl, n = slam.fl, len(srcs)
     traj = [x for x in slam.get_trajectory() if x[0] >= times[0] - 1e-6]
@@ -1640,23 +1601,6 @@ def run_async_mode(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, d
 TRANSITION_PAIRS = 2 * ASYNC_LAG_MAX    # pairs the transition feeds after the bias window
 
 
-class TwinCheck:
-    """Stands in for match_cuda.hamming_top2_windowed during a run: every
-    call goes to the wrapper (the kernel on the card, counted there) and its
-    result is held at once against the plain twin on the same inputs (best
-    everywhere, second and idx where best < BIG); raises on a difference."""
-
-    def __init__(self):
-        self.n, self.max_err = 0, 0
-
-    def __call__(self, *args):
-        out = match_cuda._WRAPPER(*args)
-        err, _ = held_to_twin(out, args[1:5] + args[6:10], *args[10:])
-        self.max_err = max(self.max_err, err)
-        self.n += 1
-        return out
-
-
 def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, src_reloc: int,
                    device, lag_max: int = ASYNC_LAG_MAX, pair: int = ASYNC_PAIR,
                    n_pairs: int = TRANSITION_PAIRS):
@@ -1668,12 +1612,13 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
     `srcs` (times, rows) up to the call that harvests the blank's pair: LOST
     there, and that call's frame is source frame `src_reloc`, the next ones
     its successors until one relocalizes (at most RELOC_MAX_FRAMES); the bias
-    window's frames after it, then `n_pairs` pairs back in the loop; flush(). Every search is held against the twin (`TwinCheck`), the
-    kernel's launches counted from 0. Returns (dict, system); raises on the
-    gates: the blank's pair lost at its harvest, exactly one "lost" event and
-    one "reloc" event, the bias window closed by a keyframe, a keyframe
-    decided at harvest after it, no frame lost and nothing pending after
-    the loss."""
+    window's frames after it, then `n_pairs` pairs back in the loop; flush().
+    Every search is recorded and held against the twin after the run
+    (`twin_check`), the kernel's launches counted from 0. Returns (dict,
+    system); raises on the gates: the blank's pair lost at its harvest,
+    exactly one "lost" event and one "reloc" event, the bias window closed
+    by a keyframe, a keyframe decided at harvest after it, no frame lost and
+    nothing pending after the loss."""
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     slam = system.SlamSystem(cam, dataclasses.replace(cfg), Tbc=TBC, device=dev)
@@ -1684,40 +1629,36 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
     n_ev0 = len(slam.events)
     fdt = float(seq.times[1] - seq.times[0])
     blank = np.full_like(seq.imgs[srcs[0]], 40)
-    chk = TwinCheck()
-    orig = match_cuda.hamming_top2_windowed
-    match_cuda.hamming_top2_windowed = chk
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec = probes.search_recorder(keep_frames=None)
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.perf_counter()
-    with vi_lm_watch() as vw:
-        try:
-            fid_blank, j = slam.frame_id, 0
-            while not (slam.fl.pendings
-                       and slam.fl.pendings[0].frames[0]["frame_id"] == fid_blank
-                       and len(slam.fl.pendings) >= slam.LAG_MAX):
-                slam.track(blank if j == 0 else seq.imgs[srcs[j]], times[j], rows[j])
-                j += 1
-            n_before, t = j, times[j - 1]
-            k, i_reloc, n_after = 0, None, slam.reloc_window + pair * n_pairs
-            while i_reloc is None or k <= i_reloc + n_after:
-                t += fdt
-                slam.track(seq.imgs[src_reloc + k], t, seq.imu[src_reloc + k])
-                if i_reloc is None and slam.reloc_buf is not None:
-                    i_reloc, lost_after = k, slam.n_lost_frames
-                elif i_reloc is None and k + 1 >= RELOC_MAX_FRAMES:
-                    raise AssertionError(f"transition: no relocalization within "
-                                         f"{RELOC_MAX_FRAMES} frames from source frame "
-                                         f"{src_reloc}")
-                k += 1
-            slam.flush()
-            if cuda:
-                torch.cuda.synchronize()
-        finally:
-            match_cuda.hamming_top2_windowed = orig
+    with vi_lm_watch() as vw, rec:
+        fid_blank, j = slam.frame_id, 0
+        while not (slam.fl.pendings
+                   and slam.fl.pendings[0].frames[0]["frame_id"] == fid_blank
+                   and len(slam.fl.pendings) >= slam.LAG_MAX):
+            slam.track(blank if j == 0 else seq.imgs[srcs[j]], times[j], rows[j])
+            j += 1
+        n_before, t = j, times[j - 1]
+        k, i_reloc, n_after = 0, None, slam.reloc_window + pair * n_pairs
+        while i_reloc is None or k <= i_reloc + n_after:
+            t += fdt
+            slam.track(seq.imgs[src_reloc + k], t, seq.imu[src_reloc + k])
+            if i_reloc is None and slam.reloc_buf is not None:
+                i_reloc, lost_after = k, slam.n_lost_frames
+            elif i_reloc is None and k + 1 >= RELOC_MAX_FRAMES:
+                raise AssertionError(f"transition: no relocalization within "
+                                     f"{RELOC_MAX_FRAMES} frames from source frame "
+                                     f"{src_reloc}")
+            k += 1
+        slam.flush()
+        if cuda:
+            torch.cuda.synchronize()
     check_vi_lm_launches("transition", vw, cuda)
     wall = time.perf_counter() - t0
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
+    twin_max_err, twin_checked = _real_search_check(rec)
     ev = [e for e in slam.events[n_ev0:] if e[1] != "kf_culled"]
     # the loss of the blank's pair (not the failed relocalization attempts after it)
     lost = [e for e in ev if e[1] == "lost" and e[2].get("mode") != "lost"]
@@ -1733,7 +1674,7 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
                epoch=slam.fl.map_epoch, pending_after_flush=len(slam.fl.pendings),
                dispatched=dict(slam.fl.n_dispatched), launches=launches,
                lm_launches=lm_launches, vi_lm_launches=vw["launches"], vi_frames=vw["frames"],
-               twin_checked=chk.n, twin_max_err=chk.max_err, wall_s=wall)
+               twin_checked=twin_checked, twin_max_err=twin_max_err, wall_s=wall)
     if len(lost) != 1 or out["lost_mode"] != "vi2" or len(reloc) != 1:
         raise AssertionError(f"transition: {len(lost)} lost events ({out['lost_mode']}), "
                              f"{len(reloc)} relocalizations: {[e[:2] for e in ev]}")
@@ -1743,8 +1684,8 @@ def run_transition(path, cam, cfg, event_kw, seq: Sequence, srcs, times, rows, s
         raise AssertionError(f"transition: {out['lost_after_reloc']} frames lost after the "
                              f"relocalization, {out['pending_after_flush']} pending, state "
                              f"{slam.state}")
-    if chk.n == 0 or (cuda and chk.n != launches):
-        raise AssertionError(f"transition: {launches} launches, {chk.n} held to the twin")
+    if rec.n == 0 or (cuda and rec.n != launches):
+        raise AssertionError(f"transition: {launches} launches, {rec.n} held to the twin")
     return out, slam
 
 
@@ -1779,7 +1720,7 @@ def run_async_phase(path, slam, rv, seq: Sequence, first: int, n_frames: int = A
     _, srcs, times, rows = resume_feed(slam.st, rv, seq, first, n_frames)
     args = (path, slam.cam, slam.cfg, slam.event_kw, seq, srcs, times, rows, slam.device)
     a, sys_a = run_async_mode(*args, 1, 1)
-    rec = SearchRecorder(keep_frames={1}, timed=False)   # B's first pair goes out at frame 1
+    rec = probes.search_recorder(keep_frames={1})   # B's first pair goes out at frame 1
     b, sys_b = run_async_mode(*args, ASYNC_LAG_MAX, ASYNC_PAIR, recorder=rec)
     dpos = [float(np.linalg.norm(b["pos"][k] - a["pos"][k])) for k in a["pos"]
             if k in b["pos"]]
@@ -2055,10 +1996,7 @@ def run_depth(seq: Sequence, p: Profile, cam, device, right=None, recorder=None)
     get_right = right if callable(right) else (lambda i: right[i])
     frames, events, attempts = [], [], []
     n_vi, i_accept, i = 0, None, -1
-    orig = match_cuda.hamming_top2_windowed
-    if recorder is not None:
-        match_cuda.hamming_top2_windowed = recorder
-    try:
+    with recorder or contextlib.nullcontext():
         with window_ba_probe() as ba_calls:
             xyz_vi = lambda: any(c["window"] and c["solver"] == "vi_ba" for c in ba_calls)
             while ((n_vi < STEREO_VI_FRAMES or (not xyz_vi() and n_vi < STEREO_VI_MAX))
@@ -2108,9 +2046,7 @@ def run_depth(seq: Sequence, p: Profile, cam, device, right=None, recorder=None)
                         a["ba_vi"] = _ba_record(v.ba_vi, vms.get("gba_vi"))
                         i_accept = i
                     attempts.append(a)
-    finally:
-        match_cuda.hamming_top2_windowed = orig
-        slam.event_probe = slam.vi_probe = None
+    slam.event_probe = slam.vi_probe = None
     for c in ba_calls:
         c["n_ur"] = None if c["n_ur"] is None else int(c["n_ur"])
     return dict(frames=frames, events=events, attempts=attempts, ba_calls=ba_calls,
@@ -2174,13 +2110,13 @@ def evict_phase(seq: Sequence, cam, dev, p: Profile = EVICT, check=True):
                     f"{p.n_vi_frames} VI frames after it")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = SearchRecorder(keep_frames={110, 120, 130}, timed=False)
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec = probes.search_recorder(keep_frames={110, 120, 130})
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.time()
     with vi_lm_watch() as vw:
         res, watch = run_evict(seq, p, cam, dev, recorder=rec)
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     slam = res["slam"]
@@ -2244,14 +2180,14 @@ def depth_phase(name, seq: Sequence, p: Profile, cam, dev, right=None):
     stereo = right is not None
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = SearchRecorder(keep_frames=() if stereo else {1, p.n_frames // 2, p.n_frames - 1},
-                         timed=False)
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec = probes.search_recorder(
+        keep_frames=() if stereo else {1, p.n_frames // 2, p.n_frames - 1})
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.time()
     with vi_lm_watch(keep=VI_LM_CHECK_SOLVES if stereo else 0) as vw:
         res = run_depth(seq, p, cam, dev, right=right, recorder=rec)
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for e in res["events"]:
@@ -2369,66 +2305,66 @@ def check_pack(desc, pm1):
         raise AssertionError("packed descriptor words disagree with the +/-1 rows")
 
 
+SEARCH_KEYS = ("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid",
+               "b_desc", "b_pm1", "b_uv", "b_lvl", "b_valid")   # the wrapper's inputs
+
+
+def search_args(inp):
+    """The wrapper's inputs from a dict of `planted_inputs`, in order."""
+    return [inp[k] for k in SEARCH_KEYS]
+
+
+def search_twin(*args, **kw):
+    """The search's twin on the wrapper's arguments (it reads the +/-1 rows,
+    not the packed words)."""
+    return hamming_top2_windowed_ref(*args[1:5], *args[6:10], *args[10:], **kw)
+
+
+def twin_check(kind, calls):
+    """The one check of a hand kernel against its plain twin: each recorded
+    call (frame, args, kwargs) goes through the program's dispatcher (the
+    kernel on CUDA tensors, the twin on CPU ones) and through the twin, and
+    the gaps of the two answers are taken over their tolerances (the
+    kernel's module's `twin_gaps`): kind "search" (the wrapper
+    match_cuda.hamming_top2_windowed; exact, a tolerance of 0), "pose"
+    (ba.pose_only_visual; pose_lm_cuda.POSE_LM_*) or "vi"
+    (ba_vi.pose_only_vi; pose_vi_lm_cuda.POSE_VI_LM_*). Raises where a gap
+    passes 1 or, on the card, unless the kernel launched once a call.
+    Returns (the largest gap of each name over its tolerance, the launches
+    the check made)."""
+    run, twin, gaps, lib = {
+        "search": (match_cuda._WRAPPER, search_twin, match_cuda.twin_gaps, match_cuda.LIB),
+        "pose": (ba.pose_only_visual, ba.pose_only_visual_ref, pose_lm_cuda.twin_gaps,
+                 pose_lm_cuda.LIB),
+        "vi": (ba_vi.pose_only_vi, ba_vi.pose_only_vi_ref, pose_vi_lm_cuda.twin_gaps,
+               pose_vi_lm_cuda.LIB)}[kind]
+    n0, worst, cuda = lib.launches, {}, False
+    for _, args, kw in calls:
+        out = run(*args, **kw)
+        cuda = out[1].is_cuda              # every kind's second output is a tensor
+        g = gaps(out, twin(*args, **kw))
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in g.items()}
+    launches = lib.launches - n0
+    if any(v > 1 for v in worst.values()) or launches != (len(calls) if cuda else 0):
+        raise AssertionError(f"{kind} kernel against its twin (gap / tolerance): {worst}, "
+                             f"{launches} launches for {len(calls)} calls")
+    return worst, launches
+
+
 def compare_kernel(inp, radius, level_tol=1):
-    """Run hamming_top2_windowed (the kernel for CUDA inputs, the twin for CPU
-    inputs) and its twin on the same inputs, batched or not (a leading B on
-    every input: one launch); `best` must be equal everywhere, `idx` and
-    `second` where best < BIG (as tests/test_match_pallas.py).
-    Returns (max_abs_err over the compared entries, n_rows_with_a_match)."""
-    k = hamming_top2_windowed(inp["a_desc"], inp["a_pm1"], inp["a_uv"], inp["a_lvl"],
-                              inp["a_valid"], inp["b_desc"], inp["b_pm1"],
-                              inp["b_uv"], inp["b_lvl"], inp["b_valid"], radius,
-                              level_tol)
-    if inp["a_desc"].is_cuda:
-        torch.cuda.synchronize()
-    return held_to_twin(k, (inp["a_pm1"], inp["a_uv"], inp["a_lvl"], inp["a_valid"],
-                            inp["b_pm1"], inp["b_uv"], inp["b_lvl"], inp["b_valid"]),
-                        radius, level_tol)
+    """The search on a dict of `planted_inputs` (batched or not: a leading B
+    on every input, one launch) held to its twin (`twin_check`).
+    Returns (the largest gap, 0 where exact; the rows with a match)."""
+    args = search_args(inp) + [radius, level_tol]
+    gaps, _ = twin_check("search", [(0, args, {})])
+    return max(gaps.values()), int((search_twin(*args)[0] < BIG).sum())
 
 
-def held_to_twin(out, twin_args, radius, level_tol=1):
-    """The kernel's (best, second, idx) against the twin's on the twin's
-    inputs (a_pm1, a_uv, a_lvl, a_valid, b_pm1, b_uv, b_lvl, b_valid): `best`
-    equal everywhere, `idx` and `second` where best < BIG; raises on a
-    difference. Returns (max_abs_err, n_rows_with_a_match)."""
-    r = hamming_top2_windowed_ref(*twin_args, radius, level_tol)
-    best, second, idx = (t.cpu().numpy().astype(np.int64) for t in out)
-    rbest, rsecond, ridx = (t.cpu().numpy().astype(np.int64) for t in r)
-    has = rbest < BIG
-    err = max(np.abs(best - rbest).max(initial=0),
-              np.abs(second - rsecond)[has].max(initial=0),
-              np.abs(idx - ridx)[has].max(initial=0))
-    if err != 0:
-        raise AssertionError(
-            f"kernel != twin at radius {radius}: {(best != rbest).sum()} best, "
-            f"{(second != rsecond)[has].sum()} second, {(idx != ridx)[has].sum()} "
-            f"idx rows differ")
-    return int(err), int(has.sum())
-
-
-def kernel_bound(inp, radius, level_tol=1):
-    """The least milliseconds the card could take for this search: the larger
-    of bytes over the memory rate (each input read once, each output written
-    once) and operations over the issue rate (the gate for every valid pair,
-    the popcount for the pairs of these inputs that pass it). A batch (a
-    leading B) is B problems: bytes, pairs and passing pairs of each summed.
-    Returns (bound_ms, bound_by, detail dict)."""
-    from mc_slam_tpu_torch.frontend.matching import window_mask
-    M, N = inp["a_desc"].shape[-2], inp["b_desc"].shape[-2]
-    B = inp["a_desc"].shape[0] if inp["a_desc"].dim() == 3 else 1
-    gate = window_mask(inp["a_uv"], inp["b_uv"], radius, inp["a_lvl"], inp["b_lvl"],
-                       level_tol) & inp["a_valid"][..., :, None] & inp["b_valid"][..., None, :]
-    n_pass = int(gate.sum())
-    del gate
-    pairs = int((inp["a_valid"].sum(-1).to(torch.int64)
-                 * inp["b_valid"].sum(-1).to(torch.int64)).sum())
-    n_bytes = B * ((M + N) * (32 + 8 + 4 + 1) + 3 * 4 * M)
-    ops = pairs * GATE_OPS_PER_PAIR + n_pass * POPC_OPS_PER_PASS
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / SIMPLE_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            dict(bytes=n_bytes, pairs=pairs, passing_pairs=n_pass, operations=ops,
-                 bytes_ms=t_bytes, operations_ms=t_ops))
+def search_bound(inp, radius):
+    """The search's bound (`probes.bound_ms` of `match_cuda.work`) on a dict
+    of `planted_inputs`: (bound_ms, bound_by, detail)."""
+    return probes.bound_ms(*match_cuda.work(*search_args(inp), radius),
+                           rate=probes.SIMPLE_OPS_PER_S)
 
 
 def _phase(name, msg):
@@ -2436,14 +2372,10 @@ def _phase(name, msg):
 
 
 def _real_search_check(rec):
-    """kernel == twin on the searches a path recorded; returns (max_err, count)."""
-    max_err = 0
-    for _, args, kw in rec.calls:
-        inp = dict(zip(("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid", "b_desc",
-                        "b_pm1", "b_uv", "b_lvl", "b_valid"), args[:10]))
-        err, _ = compare_kernel(inp, args[10] if len(args) > 10 else kw["radius"])
-        max_err = max(max_err, err)
-    return max_err, len(rec.calls)
+    """The searches a recorder kept held to the twin; returns (the largest
+    gap, 0 where exact; their count)."""
+    gaps, _ = twin_check("search", rec.calls)
+    return max(gaps.values(), default=0.0), len(rec.calls)
 
 
 def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False, vi_check=False):
@@ -2455,13 +2387,13 @@ def bootstrap_phase(name, seq: Sequence, p: Profile, cam, dev, refine=False, vi_
     error on the recorded searches, `run_bootstrap`'s dict with the system)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = SearchRecorder(keep_frames=(), timed=False)
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec = probes.search_recorder(keep_frames=())
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.time()
     with vi_lm_watch(keep=VI_LM_CHECK_SOLVES if vi_check else 0) as vw:
         res = run_bootstrap(seq, p, cam, dev, recorder=rec)
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     wall = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     ini = res["init"]
@@ -2585,8 +2517,8 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     st = slam.st
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec = SearchRecorder(keep_frames=set(), timed=False)
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec = probes.search_recorder(keep_frames=set())
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.time()
     with vi_lm_watch() as vw:
         rv = run_revisit(res, seq, p, REVISIT_SRC, REVISIT_FRAMES, recorder=rec)
@@ -2620,7 +2552,7 @@ def revisit_phase(res, seq: Sequence, p: Profile):
                         f"{d['n_cands']} candidates")
     for fid, kind, d in rv["sim3"]:
         _phase("path5", f"live {kind} at frame {fid}: {d}")
-    launches_track = hamming_top2_windowed.launches
+    launches_track = match_cuda.LIB.launches
 
     # ---- phase "loop": a planted seam at full table width ----
     src_end = REVISIT_SRC + REVISIT_FRAMES - 1
@@ -2629,8 +2561,8 @@ def revisit_phase(res, seq: Sequence, p: Profile):
     rec.keep_frames.add(-1)          # the guided verification's search
     t1 = time.time()
     lp = run_loop_phase(slam, rv["new_kf"], spread, recorder=rec)
-    launches = hamming_top2_windowed.launches
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    launches = match_cuda.LIB.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     err, n_real = _real_search_check(rec)
     v = [x for x in lp["verify"] if x["cand"] == lp["cand"]][-1]
@@ -2693,116 +2625,7 @@ MULTISEQ_INLIER_TOL = 2     # inliers, the same test's tolerance
 MULTISEQ_MESH_B = 10        # windows over the two-shard "seq" mesh (B divides evenly)
 
 
-# the pose LM kernel (solver/pose_lm_cuda.py) against its twin, here on recorded
-# solves and in tests/test_torch_pose_lm.py (whose docstring gives the reasons):
-# float32 sums in another order move a converged pose by about its last step
-POSE_LM_POS_TOL = 1e-4      # m
-POSE_LM_ROT_TOL = 1e-4      # rad
-POSE_LM_CHI2_RTOL, POSE_LM_CHI2_ATOL = 1e-2, 5e-2    # a row's chi2
-POSE_LM_INLIER_TOL = 2
-FLOAT_OPS_PER_S = 67e12     # float32 outside the tensor cores, a multiply-add as two
-# float operations an observation row takes in one pass of csrc/pose_lm.cu,
-# counted from the source (a multiply-add as two): the residual, the 2x6 /
-# 3x6 Jacobian, the robust weight and cost and the 27 sums of H and g, by
-# variant (monocular, stereo); the last pass forms residuals and chi2 only
-POSE_LM_ROW_OPS = {False: 277, True: 390}
-POSE_LM_FINAL_ROW_OPS = {False: 51, True: 57}
-POSE_LM_SOLVE_OPS = 400     # thread 0's damping, 6x6 Cholesky, retraction a iteration
-
-
-class SolveRecorder:
-    """Stands in for ba.pose_only_visual during a run (tracking calls it
-    through the module) and keeps each call's arguments by reference."""
-
-    def __init__(self):
-        self.fn = ba.pose_only_visual
-        self.calls = []
-
-    def __call__(self, *args, **kw):
-        self.calls.append((args, kw))
-        return self.fn(*args, **kw)
-
-
-def pose_lm_bound(P0, obs, iters):
-    """The least milliseconds the card could take for one launch: the larger
-    of bytes over the memory rate (each input row, its gathered point and
-    each output read or written once) and operations over the float32 rate
-    (1 + iters passes over every row, a pass a candidate, the last pass, the
-    block sums and thread 0's solves). A candidate that is not finite skips
-    its pass; that happens only where a Cholesky fails, so it is not
-    counted. Returns (bound_ms, bound_by, detail dict)."""
-    B = P0.shape[0] if P0.dim() == 2 else 1
-    O = obs.pt.shape[-1]
-    stereo = obs.ur is not None
-    n_bytes = B * (O * (8 + 8 + 4 + 4 + 12 + 4 + (4 if stereo else 0)) + 2 * 48 + 8)
-    ops = B * (O * ((1 + iters) * POSE_LM_ROW_OPS[stereo] + POSE_LM_FINAL_ROW_OPS[stereo])
-               + (1 + iters) * 28 * 255 + iters * POSE_LM_SOLVE_OPS)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FLOAT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            dict(bytes=n_bytes, operations=ops, bytes_ms=t_bytes, operations_ms=t_ops))
-
-
-def rot_gap_rad(Ra, Rb):
-    """Largest angle of Ra^T Rb over a batch, from its skew part."""
-    M = Ra.transpose(-1, -2).double() @ Rb.double()
-    w = torch.stack([M[..., 2, 1] - M[..., 1, 2], M[..., 0, 2] - M[..., 2, 0],
-                     M[..., 1, 0] - M[..., 0, 1]], -1) / 2
-    cos = (M.diagonal(dim1=-2, dim2=-1).sum(-1) - 1) / 2
-    return float(torch.atan2(torch.linalg.norm(w, dim=-1), cos).max())
-
-
-def pose_lm_check(calls):
-    """The kernel (ba.pose_only_visual on the card) against its twin
-    (ba.pose_only_visual_ref) on recorded solves; raises past the POSE_LM_*
-    tolerances. Returns the largest gaps (position m, rotation rad, a row's
-    chi2 gap over its tolerance atol + rtol |chi2|, inliers) and the launches
-    the checks made."""
-    n0 = pose_lm_cuda.pose_only_visual_lm.launches
-    gaps = dict(dP_m=0.0, dR_rad=0.0, dchi2_of_tol=0.0, dn=0)
-    for args, kw in calls:
-        (P, R, chi2, n), (Pr, Rr, chi2r, nr) = (ba.pose_only_visual(*args, **kw),
-                                                ba.pose_only_visual_ref(*args, **kw))
-        gaps["dP_m"] = max(gaps["dP_m"], float((P - Pr).abs().max()))
-        gaps["dR_rad"] = max(gaps["dR_rad"], rot_gap_rad(R, Rr))
-        r = (chi2 - chi2r).abs() / (POSE_LM_CHI2_ATOL + POSE_LM_CHI2_RTOL * chi2r.abs())
-        r = torch.where(chi2.isnan() & chi2r.isnan(), 0.0, r).nan_to_num(nan=float("inf"))
-        gaps["dchi2_of_tol"] = max(gaps["dchi2_of_tol"], float(r.max()))
-        gaps["dn"] = max(gaps["dn"], int((n - nr).abs().max()))
-    launches = pose_lm_cuda.pose_only_visual_lm.launches - n0
-    if (gaps["dP_m"] >= POSE_LM_POS_TOL or gaps["dR_rad"] >= POSE_LM_ROT_TOL
-            or gaps["dchi2_of_tol"] > 1 or gaps["dn"] > POSE_LM_INLIER_TOL
-            or launches != len(calls)):
-        raise AssertionError(f"pose LM kernel against its twin: {gaps}, {launches} launches "
-                             f"for {len(calls)} solves")
-    return gaps, launches
-
-
-# the VI pose LM kernel (solver/pose_vi_lm_cuda.py) against its twin
-# (ba_vi.pose_only_vi_ref), here on recorded solves and in
-# tests/test_torch_pose_vi_lm.py (whose docstring gives the reasons): the
-# position as the visual kernel's; the rest inside the mono-vi.stream cell's
-# limits on the frame (benchmark/workloads/mono-vi.stream.json)
-POSE_VI_LM_POS_TOL = 1e-4       # m
-POSE_VI_LM_ROT_TOL = 3e-5       # rad (the cell's 0.002 deg is 3.5e-5)
-POSE_VI_LM_VEL_TOL = 4e-4       # m/s
-POSE_VI_LM_BG_TOL = 5e-5        # rad/s, the full gyro bias
-POSE_VI_LM_BA_TOL = 3e-5        # m/s^2, the full accelerometer bias
-POSE_VI_LM_MARG_RTOL = 1e-3     # H_marg, Frobenius norm of the gap over H_marg's
-
-
 VI_LM_CHECK_SOLVES = 10         # recorded VI solves a path holds to the twin (5 frames)
-# float operations of csrc/pose_vi_lm.cu counted from the source (a
-# multiply-add as two; the visual rows' as csrc/pose_lm.cu's, POSE_LM_*_OPS):
-# one linearization's 30-d system (J^T (w Lambda) 20,520, H's 465 lower
-# entries 27,900 and their 3 factor sums 1,395, g 1,800, the quadratic
-# costs ~700, the three factors' residuals and Jacobians ~1,500, the block
-# sums 7,140); one iteration's solve (damping 60, the 30x30 Cholesky ~9,460,
-# the two triangular solves 1,800, two retractions ~240); the marginal
-# (elimination ~3,300, back substitution ~3,400, the 15x15 product 6,750)
-POSE_VI_LM_SYSTEM_OPS = 61_000
-POSE_VI_LM_SOLVE_OPS = 11_560
-POSE_VI_LM_MARG_OPS = 13_450
 
 
 @contextlib.contextmanager
@@ -2811,25 +2634,14 @@ def vi_lm_watch(keep=0):
     VI frame programs run (pipeline/tracking._vi_frame_body, two
     ba_vi.pose_only_vi solves each) and the arguments of the first `keep`
     solves, kept by reference. Yields a dict (launches, frames, calls);
-    launches is read on exit."""
-    w = dict(launches=0, frames=0, calls=[])
-    body, solve = tracking._vi_frame_body, ba_vi.pose_only_vi
-
-    def counted(*args, **kw):
-        w["frames"] += 1
-        return body(*args, **kw)
-
-    def recorded(*args, **kw):
-        if len(w["calls"]) < keep:
-            w["calls"].append((args, kw))
-        return solve(*args, **kw)
-    pose_vi_lm_cuda.pose_only_vi_lm.launches = 0
-    tracking._vi_frame_body, ba_vi.pose_only_vi = counted, recorded
-    try:
+    launches and frames are read on exit."""
+    frames = probes.Recorder(tracking, "_vi_frame_body", keep=0)
+    solves = probes.Recorder(ba_vi, "pose_only_vi", keep=keep)
+    w = dict(launches=0, frames=0, calls=solves.calls)
+    pose_vi_lm_cuda.LIB.launches = 0
+    with frames, solves:
         yield w
-    finally:
-        tracking._vi_frame_body, ba_vi.pose_only_vi = body, solve
-        w["launches"] = pose_vi_lm_cuda.pose_only_vi_lm.launches
+    w.update(launches=pose_vi_lm_cuda.LIB.launches, frames=frames.n)
 
 
 def check_vi_lm_launches(name, w, cuda):
@@ -2841,92 +2653,33 @@ def check_vi_lm_launches(name, w, cuda):
                              f"for {w['frames']} VI frames")
 
 
-def pose_vi_lm_bound(args, kw):
-    """The least milliseconds the card could take for one VI solve with the
-    arguments `args, kw` of ba_vi.pose_only_vi: the larger of bytes over the
-    memory rate (each input row, its gathered point, the states, the
-    preintegration, the informations, the prior and each output read or
-    written once) and operations over the float32 rate (a pass over every
-    row and a linearization a candidate, one at the start and one for the
-    marginal; a solve an iteration). Returns (bound_ms, bound_by, detail)."""
-    obs = args[4]
-    O, stereo = obs.pt.shape[-1], obs.ur is not None
-    marg, iters = int(kw.get("compute_marg", True)), kw["iters"]
-    n_bytes = (O * (8 + 8 + 4 + 4 + 12 + (4 if stereo else 0) + 4)
-               + 4 * (2 * 27 + 61 + 81 + 36 + 225 + 21 + 3 + 2) + 4 * (27 + 225) + 8)
-    passes = 1 + iters + marg
-    ops = (O * (passes * POSE_LM_ROW_OPS[stereo] + POSE_LM_FINAL_ROW_OPS[stereo])
-           + passes * POSE_VI_LM_SYSTEM_OPS + iters * POSE_VI_LM_SOLVE_OPS
-           + marg * POSE_VI_LM_MARG_OPS)
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FLOAT_OPS_PER_S * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
-            dict(bytes=n_bytes, operations=ops, bytes_ms=t_bytes, operations_ms=t_ops))
-
-
 def vi_lm_phase_check(name, calls, time_it=False):
     """The VI pose LM kernel against its twin on a path's recorded solves
-    (`pose_vi_lm_check`), with a report line; with `time_it`, the first
-    solve with the marginal timed (one launch warm and with a cold L2, the
-    twin, the bound). Returns a dict of what it measured."""
-    gaps, launches = pose_vi_lm_check(calls)
+    (`twin_check`), with a report line; with `time_it`, the first solve
+    with the marginal timed (one launch warm and with a cold L2, the twin,
+    the bound). Returns a dict of what it measured."""
+    gaps, launches = twin_check("vi", calls)
     out = dict(solves=len(calls), gaps_over_tol=gaps, check_launches=launches)
     line = (f"VI pose LM kernel against its twin on the {len(calls)} recorded solves (gap / "
             f"tolerance: {', '.join(f'{k} {v:.3g}' for k, v in gaps.items())})")
     if time_it:
-        args, kw = next(c for c in calls if c[1].get("compute_marg", True))
+        _, args, kw = next(c for c in calls if c[2].get("compute_marg", True))
+        obs = args[4]
         flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=args[3].device)
         ms = time_cuda(lambda: ba_vi.pose_only_vi(*args, **kw))
         cold = time_cuda_cold(lambda: ba_vi.pose_only_vi(*args, **kw), flush)
         twin = time_cuda(lambda: ba_vi.pose_only_vi_ref(*args, **kw), n=3, warmup=1, rounds=3)
-        bound, by, bd = pose_vi_lm_bound(args, kw)
+        bound, by, bd = probes.bound_ms(
+            *pose_vi_lm_cuda.work(obs.pt.shape[-1], kw["iters"], True, obs.ur is not None),
+            rate=probes.FLOAT_OPS_PER_S)
         del flush
-        out.update(O=args[4].pt.shape[-1], Np=args[3].shape[0], iters=kw["iters"], ms=ms,
+        out.update(O=obs.pt.shape[-1], Np=args[3].shape[0], iters=kw["iters"], ms=ms,
                    cold_ms=cold, twin_ms=twin, bound_ms=bound, bound_by=by, bound_detail=bd)
         line += (f"; O={out['O']} Np={out['Np']}, {kw['iters']} iterations with the marginal: "
                  f"one launch {ms * 1e3:.1f} us (cold L2 {cold * 1e3:.1f} us), twin "
                  f"{twin * 1e3:.1f} us, bound {bound * 1e3:.3f} us by {by}")
     _phase(name, line)
     return out
-
-
-def pose_vi_lm_gaps(got, ref):
-    """The gaps of one VI solve's answer `got` to the twin's `ref`, each over
-    its tolerance (a gap within it reads at most 1): the state's and the
-    marginal's the POSE_VI_LM_* ones, each row's chi2 and the inliers the
-    POSE_LM_* ones."""
-    (ns, chi2, n, Hm), (nr, chi2r, nrr, Hmr) = got, ref
-    d = lambda a, b: float((a.double() - b.double()).abs().max())
-    r = (chi2 - chi2r).abs() / (POSE_LM_CHI2_ATOL + POSE_LM_CHI2_RTOL * chi2r.abs())
-    r = torch.where(chi2.isnan() & chi2r.isnan(), 0.0, r).nan_to_num(nan=float("inf"))
-    Hn = float(torch.linalg.norm(Hmr.double()))
-    marg = float(torch.linalg.norm(Hm.double() - Hmr.double())) / Hn if Hn > 0 else d(Hm, Hmr)
-    return dict(dP=d(ns.P, nr.P) / POSE_VI_LM_POS_TOL,
-                dR=rot_gap_rad(ns.R, nr.R) / POSE_VI_LM_ROT_TOL,
-                dV=d(ns.V, nr.V) / POSE_VI_LM_VEL_TOL,
-                dbg=d(ns.bg + ns.dbg, nr.bg + nr.dbg) / POSE_VI_LM_BG_TOL,
-                dba=d(ns.ba + ns.dba, nr.ba + nr.dba) / POSE_VI_LM_BA_TOL,
-                dchi2=float(r.max()) if r.numel() else 0.0,
-                dn=abs(int(n) - int(nrr)) / POSE_LM_INLIER_TOL,
-                marg=marg / POSE_VI_LM_MARG_RTOL)
-
-
-def pose_vi_lm_check(calls):
-    """The kernel (ba_vi.pose_only_vi on the card) against its twin
-    (ba_vi.pose_only_vi_ref) on recorded solves; raises where a gap passes
-    its tolerance. Returns the largest gaps over their tolerances and the
-    launches the checks made."""
-    n0 = pose_vi_lm_cuda.pose_only_vi_lm.launches
-    gaps = {}
-    for args, kw in calls:
-        g = pose_vi_lm_gaps(ba_vi.pose_only_vi(*args, **kw),
-                            ba_vi.pose_only_vi_ref(*args, **kw))
-        gaps = {k: max(v, gaps.get(k, 0.0)) for k, v in g.items()}
-    launches = pose_vi_lm_cuda.pose_only_vi_lm.launches - n0
-    if any(v > 1 for v in gaps.values()) or launches != len(calls):
-        raise AssertionError(f"VI pose LM kernel against its twin (gap / tolerance): {gaps}, "
-                             f"{launches} launches for {len(calls)} solves")
-    return gaps, launches
 
 
 def check_lm_launches(name, lm_launches, n_visual):
@@ -3024,19 +2777,19 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
     track_windows(single_step, maps[0], seq, starts[:1], dev, batched=False, n_steps=1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     bat = track_windows(step, ms, seq, starts, dev, timed=True)
-    launches_batched = hamming_top2_windowed.launches
-    lm_batched = pose_lm_cuda.pose_only_visual_lm.launches
+    launches_batched = match_cuda.LIB.launches
+    lm_batched = pose_lm_cuda.LIB.launches
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     # the same windows one at a time through the unbatched program
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t1 = time.perf_counter()
     seqs = [track_windows(single_step, maps[b], seq, [s], dev, batched=False, timed=True)
             for b, s in enumerate(starts)]
     seq_s = time.perf_counter() - t1
-    launches_single = hamming_top2_windowed.launches
-    lm_single = pose_lm_cuda.pose_only_visual_lm.launches
+    launches_single = match_cuda.LIB.launches
+    lm_single = pose_lm_cuda.LIB.launches
     gt = np.stack([seq.P[s + 1:s + 1 + MULTISEQ_STEPS] for s in starts], axis=1)
     rmse = np.sqrt(np.mean(np.sum((bat["P"] - gt) ** 2, axis=-1), axis=0))
     P_single = np.concatenate([r["P"] for r in seqs], axis=1)
@@ -3084,51 +2837,45 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
     _phase("multiseq", f"kernels and copies the card ran: {k_batched} for one batched step "
                        f"of {B} windows, {k_single} for one unbatched frame")
     # the batched kernel on the step's real searches
-    rec = SearchRecorder(keep_frames=1, timed=False)
-    orig = match_cuda.hamming_top2_windowed
-    match_cuda.hamming_top2_windowed = rec
-    try:
+    with probes.search_recorder(keep_frames=1) as rec:
         step(ms, imgs1, P0, R0)
-    finally:
-        match_cuda.hamming_top2_windowed = orig
     err_real, n_real = _real_search_check(rec)
     shapes = sorted({tuple(c[1][0].shape) for c in rec.calls})
     del rec
     _phase("multiseq", f"batched kernel == batched twin on the {n_real} real searches of one "
                        f"step (a_desc {shapes})")
     # the pose LM kernel on the step's two recorded solves
-    srec = SolveRecorder()
-    ba.pose_only_visual = srec
-    try:
+    with probes.Recorder(ba, "pose_only_visual") as srec:
         step(ms, imgs1, P0, R0)
-    finally:
-        ba.pose_only_visual = srec.fn
-    lm_gaps, lm_launches = pose_lm_check(srec.calls)
-    args, kw = srec.calls[0]
+    gaps, lm_launches = twin_check("pose", srec.calls)
+    lm_gaps = dict(dP_m=gaps["dP"] * pose_lm_cuda.POSE_LM_POS_TOL,
+                   dR_rad=gaps["dR"] * pose_lm_cuda.POSE_LM_ROT_TOL, dchi2_of_tol=gaps["dchi2"],
+                   dn=round(gaps["dn"] * pose_lm_cuda.POSE_LM_INLIER_TOL))
+    _, args, kw = srec.calls[0]
     flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     lm_ms = time_cuda(lambda: ba.pose_only_visual(*args, **kw))
     lm_cold = time_cuda_cold(lambda: ba.pose_only_visual(*args, **kw), flush)
     lm_twin = time_cuda(lambda: ba.pose_only_visual_ref(*args, **kw), n=3, warmup=1, rounds=3)
-    lm_bound, lm_by, lm_detail = pose_lm_bound(args[0], args[3], kw["iters"])
+    obs = args[3]
+    lm_bound, lm_by, lm_detail = probes.bound_ms(
+        *pose_lm_cuda.work(args[0].shape[0], obs.pt.shape[-1], kw["iters"], obs.ur is not None),
+        rate=probes.FLOAT_OPS_PER_S)
     del flush
     _phase("multiseq", f"pose LM kernel against its twin on the {len(srec.calls)} solves of one "
-                       f"step (B={args[0].shape[0]} O={args[3].pt.shape[-1]} "
+                       f"step (B={args[0].shape[0]} O={obs.pt.shape[-1]} "
                        f"Np={args[2].shape[-2]}, {kw['iters']} iterations): positions within "
-                       f"{lm_gaps['dP_m']:.3g} m (< {POSE_LM_POS_TOL:g}), rotations within "
-                       f"{lm_gaps['dR_rad']:.3g} rad (< {POSE_LM_ROT_TOL:g}), chi2 within "
-                       f"{lm_gaps['dchi2_of_tol']:.3g} of its tolerance, inliers within "
-                       f"{lm_gaps['dn']} (<= {POSE_LM_INLIER_TOL}); {lm_launches} launches for "
-                       f"{len(srec.calls)} calls; "
+                       f"{lm_gaps['dP_m']:.3g} m (< {pose_lm_cuda.POSE_LM_POS_TOL:g}), rotations "
+                       f"within {lm_gaps['dR_rad']:.3g} rad (< {pose_lm_cuda.POSE_LM_ROT_TOL:g}), "
+                       f"chi2 within {lm_gaps['dchi2_of_tol']:.3g} of its tolerance, inliers "
+                       f"within {lm_gaps['dn']} (<= {pose_lm_cuda.POSE_LM_INLIER_TOL}); "
+                       f"{lm_launches} launches for {len(srec.calls)} calls; "
                        f"one launch {lm_ms * 1e3:.1f} us (cold L2 {lm_cold * 1e3:.1f} us), twin "
                        f"{lm_twin * 1e3:.1f} us, bound {lm_bound * 1e3:.2f} us by {lm_by}")
-    del srec, args, kw
+    del srec, args, kw, obs
     # the batched kernel at B x the tracking shapes, planted ties
     rng = np.random.default_rng(11)
     inp = planted_inputs(16384, 1024, rng, dev, batch=B)
-    args = [inp[k] for k in ("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid",
-                             "b_desc", "b_pm1", "b_uv", "b_lvl", "b_valid")]
-    ref_args = [inp[k] for k in ("a_pm1", "a_uv", "a_lvl", "a_valid",
-                                 "b_pm1", "b_uv", "b_lvl", "b_valid")]
+    args = search_args(inp)
     flush = torch.zeros(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     k_ms, k_cold, k_plain, k_bound = {}, {}, {}, {}
     max_err = err_real
@@ -3137,9 +2884,8 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
         max_err = max(max_err, err)
         k_ms[radius] = time_cuda(lambda: hamming_top2_windowed(*args, radius))
         k_cold[radius] = time_cuda_cold(lambda: hamming_top2_windowed(*args, radius), flush)
-        k_plain[radius] = time_cuda(lambda: hamming_top2_windowed_ref(*ref_args, radius),
-                                    n=3, warmup=1, rounds=3)
-        k_bound[radius] = kernel_bound(inp, radius)
+        k_plain[radius] = time_cuda(lambda: search_twin(*args, radius), n=3, warmup=1, rounds=3)
+        k_bound[radius] = search_bound(inp, radius)
         _phase("multiseq", f"B={B} M=16384 N=1024 r={radius:g}: exact ({n_has} rows matched); "
                            f"one launch {k_ms[radius] * 1e3:.1f} us (cold L2 "
                            f"{k_cold[radius] * 1e3:.1f} us) against {B} x single "
@@ -3147,7 +2893,7 @@ def run_multiseq_phase(seq: Sequence, p: Profile, cam, ext, dev, single_ms, sing
                            f"{k_plain[radius] * 1e3:.1f} us; bound "
                            f"{k_bound[radius][0] * 1e3:.2f} us by {k_bound[radius][1]} ({B} x "
                            f"single {B * single_bound[radius][0] * 1e3:.2f} us)")
-    del flush, inp, args, ref_args
+    del flush, inp, args
     # 10 of the windows over a two-shard "seq" mesh on one card
     sub = slice(0, MULTISEQ_MESH_B)
     ms_sub = multiseq.batch_rows(ms, sub)
@@ -3246,11 +2992,11 @@ def bench_phase(dev):
     t0 = time.time()
     sz = bench.FULL
     n = BENCH_CALLS
-    pose_lm_cuda.pose_only_visual_lm.launches = 0
+    pose_lm_cuda.LIB.launches = 0
     sub, det = bench.run_workloads(sz, dev, n_frame=n, n_ex=n, n_ba=n, n_batched=n, n_hm=n,
                                    profile=False)
     launches = det["launches"]
-    lm_launches = pose_lm_cuda.pose_only_visual_lm.launches
+    lm_launches = pose_lm_cuda.LIB.launches
     _phase("bench", f"frame step ({sz['W']}x{sz['H']}, {sz['n_feat']} features, "
                     f"{sz['n_levels']} levels, {sz['n_mp']}-point map): "
                     f"{sub['frame_tracking_ms']:.2f} ms ({sub['frame_tracking_fps']:.2f} "
@@ -3377,6 +3123,11 @@ def async_profile_phase(modes, seq: Sequence, detail):
                                                "device_busy_share")})
 
 
+def _source(lib):
+    """A kernel's source, relative to the repository's root."""
+    return os.path.relpath(lib.source, os.path.dirname(os.path.abspath(__file__)))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -3388,9 +3139,7 @@ def main():
     def lap(name):
         # the seconds since the previous phase ended (the script's time budget)
         laps[name] = time.time() - t_start - sum(laps.values())
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = probes.card_line()
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
     _phase("env", f"{kind} | nvidia-smi: {smi} | torch {torch.__version__} "
@@ -3413,16 +3162,12 @@ def main():
             err, n_has = compare_kernel(inp, radius)
             max_err = max(max_err, err)
             if (M, N) == (16384, 1024):
-                args = [inp[k] for k in ("a_desc", "a_pm1", "a_uv", "a_lvl", "a_valid",
-                                         "b_desc", "b_pm1", "b_uv", "b_lvl", "b_valid")]
-                ref_args = [inp[k] for k in ("a_pm1", "a_uv", "a_lvl", "a_valid",
-                                             "b_pm1", "b_uv", "b_lvl", "b_valid")]
+                args = search_args(inp)
                 kernel_ms[radius] = time_cuda(lambda: hamming_top2_windowed(*args, radius))
                 cold_ms[radius] = time_cuda_cold(
                     lambda: hamming_top2_windowed(*args, radius), flush)
-                plain_ms[radius] = time_cuda(
-                    lambda: hamming_top2_windowed_ref(*ref_args, radius), n=10)
-                bounds[radius] = kernel_bound(inp, radius)
+                plain_ms[radius] = time_cuda(lambda: search_twin(*args, radius), n=10)
+                bounds[radius] = search_bound(inp, radius)
                 _phase("kernel", f"M={M} N={N} r={radius:g}: exact ({n_has} rows "
                                  f"matched); kernel {kernel_ms[radius] * 1e3:.1f} us "
                                  f"(cold L2 {cold_ms[radius] * 1e3:.1f} us), twin "
@@ -3460,13 +3205,13 @@ def main():
     # then the measured run with every count set to 0
     run_slice(m, dataclasses.replace(seq, imgs=seq.imgs[:3], imu=seq.imu[:3]),
               dataclasses.replace(p, n_frames=3), cam, ext, dev)
-    rec = SearchRecorder(keep_frames=3, timed=True)
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec = probes.search_recorder(keep_frames=3, timed=True)
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.time()
     res = run_slice(m, seq, dataclasses.replace(p, n_frames=PATH1_FRAMES + 1), cam, ext, dev,
                     recorder=rec, timed=True)
-    launches_loc = hamming_top2_windowed.launches
-    lm_loc = pose_lm_cuda.pose_only_visual_lm.launches
+    launches_loc = match_cuda.LIB.launches
+    lm_loc = pose_lm_cuda.LIB.launches
     wall = time.time() - t0
     n_loc = PATH1_FRAMES
     summ = res["summary"]
@@ -3498,12 +3243,12 @@ def main():
     n_tracked = p.n_frames - 1
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    rec2 = SearchRecorder(keep_frames={0, 9, 19}, timed=False)
-    hamming_top2_windowed.launches = pose_lm_cuda.pose_only_visual_lm.launches = 0
+    rec2 = probes.search_recorder(keep_frames={0, 9, 19})
+    match_cuda.LIB.launches = pose_lm_cuda.LIB.launches = 0
     t0 = time.time()
     res2 = run_track_and_map(seq, p, cam, ext, dev, recorder=rec2)
-    launches_map = hamming_top2_windowed.launches
-    lm_map = pose_lm_cuda.pose_only_visual_lm.launches
+    launches_map = match_cuda.LIB.launches
+    lm_map = pose_lm_cuda.LIB.launches
     wall2 = time.time() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     for e in res2["events"]:
@@ -3683,14 +3428,14 @@ def main():
                        + f" = {sum(d['vi_lm_launches'] for d in vi_paths.values())}")
     vi3 = detail3["vi_lm_check"]
     record = {"kernels": [{
-        "name": "hamming_top2_windowed", "route": "cuda", "source": KERNEL_SOURCE,
+        "name": "hamming_top2_windowed", "route": "cuda", "source": _source(match_cuda.LIB),
         "replaces": KERNEL_REPLACES,
         "shape": "M=16384 x N=1024 (paths 1-7, phases checkpoint, async and bench); "
                  f"M={EVICT.max_mp} x N={EVICT.n_feat} (phase evict)",
         "launches": launches_paths,
         "max_abs_err": max_err, "ms": kernel_ms[15.0], "plain_ms": plain_ms[15.0],
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}, {
-        "name": "hamming_top2_windowed (batched)", "route": "cuda", "source": KERNEL_SOURCE,
+        "name": "hamming_top2_windowed (batched)", "route": "cuda", "source": _source(match_cuda.LIB),
         "replaces": KERNEL_REPLACES,
         "shape": f"B={len(MULTISEQ_STARTS)} x M=16384 x N=1024 (phase multiseq); B=8 (phase "
                  "bench)",
@@ -3698,7 +3443,7 @@ def main():
         "max_abs_err": max(err_ms, err_bench), "ms": rec_ms["ms"],
         "plain_ms": rec_ms["plain_ms"], "bound_ms": rec_ms["bound_ms"],
         "bound_by": rec_ms["bound_by"], "library_ms": None}, {
-        "name": "pose_only_visual_lm", "route": "cuda", "source": POSE_LM_SOURCE,
+        "name": "pose_only_visual_lm", "route": "cuda", "source": _source(pose_lm_cuda.LIB),
         "replaces": None,
         "shape": f"B={len(MULTISEQ_STARTS)} x O={p.n_feat} x Np={p.max_mp}, "
                  f"{MULTISEQ_ITERS} iterations (phase multiseq's timed solve); every "
@@ -3707,12 +3452,13 @@ def main():
         "max_abs_err": rec_ms["pose_lm"]["max_abs_err"], "ms": rec_ms["pose_lm"]["ms"],
         "plain_ms": rec_ms["pose_lm"]["plain_ms"], "bound_ms": rec_ms["pose_lm"]["bound_ms"],
         "bound_by": rec_ms["pose_lm"]["bound_by"], "library_ms": None}, {
-        "name": "pose_only_vi_lm", "route": "cuda", "source": POSE_VI_LM_SOURCE,
+        "name": "pose_only_vi_lm", "route": "cuda", "source": _source(pose_vi_lm_cuda.LIB),
         "replaces": None,
         "shape": f"O={vi3['O']} x Np={vi3['Np']}, {vi3['iters']} iterations with the marginal "
                  "(path 3's timed solve); every VI frame's two ba_vi.pose_only_vi on the card",
         "launches": sum(d["vi_lm_launches"] for d in vi_paths.values()),
-        "max_abs_err": vi3["gaps_over_tol"]["dP"] * POSE_VI_LM_POS_TOL, "ms": vi3["ms"],
+        "max_abs_err": vi3["gaps_over_tol"]["dP"] * pose_vi_lm_cuda.POSE_VI_LM_POS_TOL,
+        "ms": vi3["ms"],
         "plain_ms": vi3["twin_ms"], "bound_ms": vi3["bound_ms"], "bound_by": vi3["bound_by"],
         "library_ms": None}]}
     strip = lambda e: {k: v for k, v in e.items() if k != "costs"}

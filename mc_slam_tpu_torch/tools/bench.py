@@ -43,7 +43,7 @@ reference's 20 frames/s; progress goes to stderr as "# ..." lines.
    frames its artifact covers).
 9. scaling: `tools.bench_scaling` in a subprocess, under sub["scaling"].
 
-sub["device"] is the card's `nvidia-smi --query-gpu=name,power.limit` line,
+sub["device"] is the card's name and power limit (`probes.card_line()`),
 or "cpu". `--small` shrinks every workload (160x120, 256 features, 3 levels,
 512 map points, BA windows of 4 keyframes and 128 points) for tests on the
 host; on the CPU no device metric is reported (times are the host's, the
@@ -67,10 +67,6 @@ from mc_slam_tpu_torch.tools import probes
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# the H100's published peaks (SXM, at its 700 W limit)
-PEAK_F32 = 67e12            # FLOP/s, float32 outside the tensor cores
-PEAK_HBM = 3.35e12          # B/s
-PEAK_POWER_W = 700.0
 DC = 15                     # a keyframe's NavState dimensions (P, V, R, bg, ba)
 
 FULL = dict(H=480, W=752, n_feat=1024, n_levels=8, n_mp=16384, ba_kf=20, ba_pts=2048,
@@ -83,18 +79,6 @@ E2E_FRAMES = 600
 
 def log(msg):
     print(f"# {msg}", file=sys.stderr, flush=True)
-
-
-def card_line():
-    """nvidia-smi's "name, power.limit" of the first card."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
-
-
-def power_limit_w(line):
-    """The watts of a card_line(), e.g. "NVIDIA H100 80GB HBM3, 700.00 W"."""
-    return float(line.rsplit(",", 1)[1].strip().split()[0])
 
 
 def synthetic_inputs(sz, seed=0):
@@ -208,10 +192,11 @@ def workload_counts(sz, n_obs_idp, iters=BA_ITERS):
 
 
 def speed_of_light(counts, dt_hm, dt_idp, dt_ex, power_w):
-    """Achieved rates and roofline shares against the published peaks,
-    scaled by power_w / 700 W; raises when a share reads over 100 %."""
-    scale = min(1.0, power_w / PEAK_POWER_W)
-    f32, hbm = PEAK_F32 * scale, PEAK_HBM * scale
+    """Achieved rates and roofline shares against the published peaks
+    (`probes`), scaled by power_w / 700 W; raises when a share reads over
+    100 %."""
+    scale = min(1.0, power_w / probes.PEAK_POWER_W)
+    f32, hbm = probes.FLOAT_OPS_PER_S * scale, probes.HBM_BYTES_PER_S * scale
     hm_rate = counts["hamming"]["operations"] / dt_hm
     idp_rate = counts["idp_ba"]["operations"] / dt_idp
     ex_bw = counts["extraction"]["bytes"] / dt_ex
@@ -258,7 +243,7 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
                   profile=True):
     """Workloads 1-6 in this process; with `profile` (on the card) the
     kernels and copies of a frame step and of a batched step under
-    torch.profiler, last. A `probes.SearchRecorder` in front of the kernel's
+    torch.profiler, last. A `probes.search_recorder` in front of the kernel's
     wrapper keeps the searches of the first frame step and of the first
     batched step. Returns (sub dict, detail dict with the BA cost curves,
     the kernel's launches by workload and the recorder)."""
@@ -267,21 +252,20 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     from mc_slam_tpu_torch.parallel import multiseq
     from mc_slam_tpu_torch.solver import factors
     cuda = device.type == "cuda"
-    counter = match_cuda._WRAPPER      # the counter's owner, whatever shim is in front of it
+    counter = match_cuda.LIB           # the kernel's launches, whatever shim is in front of it
     img_np, pts, words = synthetic_inputs(sz)
     cam = euroc_camera(device=device)
     ext = factors.identity_extrinsics(device=device)
     img = torch.from_numpy(img_np).to(device)
     m = synthetic_map(sz, pts, words, device)
     P0, R0 = torch.zeros(3, device=device), torch.eye(3, device=device)
-    rec = probes.SearchRecorder(keep_frames={("frame_step", 0), ("batched_step", 0)},
-                                timed=False)
+    rec = probes.search_recorder(keep_frames={("frame_step", 0), ("batched_step", 0)})
     detail = {"launches": {}, "recorder": rec}
 
     # 1: the fused frame step
     frame_step = make_frame_step(cam, ext, sz)
     counter.launches = 0
-    with probes.recording(rec):
+    with rec:
         dt_frame, _ = timeit(numbered(rec, "frame_step", lambda: frame_step(img, m, P0, R0)),
                              cuda, n=n_frame)
     detail["launches"]["frame_step"] = counter.launches
@@ -313,7 +297,7 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     mstep = multiseq.make_batched_step(cam, ext, n_features=sz["n_feat"],
                                        n_levels=sz["n_levels"])
     counter.launches = 0
-    with probes.recording(rec):
+    with rec:
         dt_ms, _ = timeit(numbered(rec, "batched_step", lambda: mstep(ms, imgs_b, P0b, R0b)[0]),
                           cuda, n=n_batched)
     detail["launches"]["batched_step"] = counter.launches
@@ -331,7 +315,7 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     kernel_rate = None
     if cuda:
         _, args, kw = rec.calls[0]              # the first frame step's first search
-        dt_k = probes.time_cuda(lambda: counter(*args, **kw)) / 1e3
+        dt_k = probes.time_cuda(lambda: match_cuda._WRAPPER(*args, **kw)) / 1e3
         M, N = args[0].shape[0], args[5].shape[0]
         kernel_rate = M * N / dt_k / 1e9
         log(f"hamming_top2_windowed {M}x{N} r={args[10]:g}: {dt_k * 1e6:.2f} us -> "
@@ -341,7 +325,7 @@ def run_workloads(sz, device, n_frame=20, n_ex=20, n_ba=5, n_batched=10, n_hm=20
     counts = workload_counts(sz, int((pi["idp_obs"].valid > 0).sum()))
     sol = launches = batched_launches = None
     if cuda:
-        sol = speed_of_light(counts, dt_hm, dt_idp, dt_ex, power_limit_w(card_line()))
+        sol = speed_of_light(counts, dt_hm, dt_idp, dt_ex, probes.power_limit_w(probes.card_line()))
         log(f"speed-of-light: {sol}")
     if cuda and profile:
         # the profiler last: it slows what runs after it
@@ -490,7 +474,7 @@ def main(argv=None):
     if device.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("bench: no GPU (pass --device cpu to run on the host)")
-        card = card_line()
+        card = probes.card_line()
     else:
         card = "cpu"
     log(f"device: {card}")

@@ -21,7 +21,7 @@ PyTorch twin at M=16384 x N=1024 and the ragged 16001 x 1000, radii 4, 15 and
 * --batch B: B problems of 16384 x 1024 (planted_inputs(batch=B)) in ONE
   launch of the shipped build through the wrapper, held exactly against the
   batched twin, then timed warm and cold as above, beside B x the single
-  problem's wrapper time and the batched bound (chip_smoke.kernel_bound).
+  problem's wrapper time and the batched bound (chip_smoke.search_bound).
 
 Needs a GPU; there is no CPU mode.
 """
@@ -113,9 +113,7 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = probes.card_line()
     print(smi, flush=True)
     out_dir = cuda_build.BUILD_ROOT / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -180,7 +178,7 @@ def main():
                 lambda: match_cuda.hamming_top2_windowed(*bargs, r))
             batched["cold_ms"][f"{r:g}"] = probes.time_cuda_cold(
                 lambda: match_cuda.hamming_top2_windowed(*bargs, r), flush, n=30)
-            batched["bound_ms"][f"{r:g}"] = chip_smoke.kernel_bound(inp, r)[0]
+            batched["bound_ms"][f"{r:g}"] = chip_smoke.search_bound(inp, r)[0]
             print(f"[batch] B={B} r={r:g}: exact; one launch warm "
                   f"{batched['warm_ms'][f'{r:g}'] * 1e3:.2f} us, cold "
                   f"{batched['cold_ms'][f'{r:g}'] * 1e3:.2f} us; {B} x single "

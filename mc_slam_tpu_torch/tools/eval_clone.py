@@ -79,7 +79,6 @@ import contextlib
 import json
 import os
 import re
-import subprocess
 import sys
 import time
 
@@ -650,15 +649,14 @@ def main(argv=None):
     from mc_slam_tpu_torch.io import checkpoint
     from mc_slam_tpu_torch.pipeline.pipebase import LOST, OK
     from mc_slam_tpu_torch.pipeline.system import SlamSystem
+    from mc_slam_tpu_torch.tools import probes
 
     dev = resolve(args.device)
     card = "cpu"
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("eval_clone: no GPU (pass --device cpu to run on the host)")
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              check=True).stdout.strip().splitlines()[0]
+        card = probes.card_line()
     print(card, flush=True)
 
     cfg = profile_config(args.profile)

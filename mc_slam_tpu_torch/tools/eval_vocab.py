@@ -24,7 +24,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -109,14 +108,13 @@ def main(argv=None):
 
     from mc_slam_tpu_torch.device import resolve
     from mc_slam_tpu_torch.frontend import bow
+    from mc_slam_tpu_torch.tools import probes
     dev = resolve(args.device)
     card = "cpu"
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise SystemExit("eval_vocab: no GPU (pass --device cpu to run on the host)")
-        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                               "--format=csv,noheader"], capture_output=True, text=True,
-                              check=True).stdout.strip().splitlines()[0]
+        card = probes.card_line()
     print(card, flush=True)
     vocab = bow.load_default_vocab(device=dev)
     idf = bow.load_default_idf(device=dev)

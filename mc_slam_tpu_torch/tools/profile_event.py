@@ -41,7 +41,6 @@ import collections
 import copy
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 import warnings
@@ -395,10 +394,9 @@ def main():
     sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
     import chip_smoke
     from mc_slam_tpu_torch.pipeline import mapping, mapping_ctl
+    from mc_slam_tpu_torch.tools import probes
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip().splitlines()[0]
+    smi = probes.card_line()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
     if args.path == "bootstrap":

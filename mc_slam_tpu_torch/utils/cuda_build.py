@@ -5,6 +5,9 @@ shared library under `_build/<hash>/` (the hash covers the source and the
 flags, so an edited source rebuilds and an unchanged one is only loaded),
 and ctypes loads it. Nothing here includes PyTorch's headers. The build
 happens at a kernel's first launch, never at import.
+
+Every kernel's wrapper checks its inputs with `check` and ends in one
+`Library.launch`, which counts the launches that succeeded.
 """
 from __future__ import annotations
 
@@ -15,6 +18,8 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
@@ -66,12 +71,30 @@ def build_library(source: Path) -> Path:
     return lib
 
 
+def check(name, t, dtype, shape, device):
+    """Raise unless `t` is a contiguous tensor of `dtype` and `shape` on
+    `device` (the kernels read every input through its raw pointer)."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} is a {type(t).__name__}, expected a tensor")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
 class Library:
     """One C entry point of a kernel source, built and loaded on first use.
-    argtypes: ctypes.c_void_p for every pointer and the stream."""
+    argtypes: ctypes.c_void_p for every pointer and the stream. `name` is
+    the kernel's in errors; `launches` counts the launches that returned 0,
+    whatever stands in front of the wrapper."""
 
-    def __init__(self, source: Path, symbol: str, argtypes):
-        self.source, self.symbol, self.argtypes = source, symbol, argtypes
+    def __init__(self, source: Path, symbol: str, argtypes, name: str):
+        self.source, self.symbol, self.argtypes, self.name = source, symbol, argtypes, name
+        self.launches = 0
         self._fn = None
 
     def fn(self):
@@ -81,3 +104,12 @@ class Library:
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def launch(self, *args):
+        """Call the C entry point (it enqueues the kernel on the stream it is
+        given and returns the CUDA error of the launch); raise on an error,
+        else count the launch."""
+        err = self.fn()(*args)
+        if err != 0:
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {err}")
+        self.launches += 1

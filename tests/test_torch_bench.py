@@ -103,8 +103,7 @@ def test_frame_step_matches_jax_on_shared_features(small_frame):
     np.testing.assert_allclose(P.numpy(), np.asarray(jr.P), rtol=0, atol=1e-4)
     assert int(n_in) == int(jr.n_inliers)
     # the kernel's arguments of the first search: the whole map against the frame, 15 px
-    rec = probes.SearchRecorder(keep_frames=1, timed=False)
-    with probes.recording(rec):
+    with probes.search_recorder(keep_frames=1) as rec:
         step(img, m, torch.zeros(3), torch.eye(3))
     assert len(rec.calls) == 2
     _, args, kw = rec.calls[0]
@@ -160,7 +159,7 @@ def test_speed_of_light_refuses_a_share_over_100_percent():
     np.testing.assert_allclose(half["hamming_pct_f32_peak"], 2 * sol["hamming_pct_f32_peak"])
     with pytest.raises(SystemExit, match="over 100 %"):
         bench.speed_of_light(c, 1e-5, 1.0, 1.0, 700.0)
-    assert bench.power_limit_w("NVIDIA H100 80GB HBM3, 700.00 W") == 700.0
+    assert probes.power_limit_w("NVIDIA H100 80GB HBM3, 700.00 W") == 700.0
 
 
 def test_part_a_matches_jax_chunked_gba():

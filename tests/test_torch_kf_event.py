@@ -29,11 +29,14 @@ from mc_slam_tpu.pipeline import mapping as jmap
 from mc_slam_tpu.pipeline.mapping_ctl import MappingCtlMixin
 from mc_slam_tpu.solver import ba_vi_idp as jidp
 from mc_slam_tpu_torch import convert
+from mc_slam_tpu_torch.frontend import match_cuda
 from mc_slam_tpu_torch.imu.navstate import NavState
 from mc_slam_tpu_torch.imu.preintegration import euroc_noise
 from mc_slam_tpu_torch.pipeline import mapping as tmap, mapping_ctl
 from mc_slam_tpu_torch.pipeline.system import SlamConfig
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
+from mc_slam_tpu_torch.solver import pose_lm_cuda, pose_vi_lm_cuda
+from mc_slam_tpu_torch.tools import probes
 
 from torch_port_helpers import (SMALL, assert_maps_match, jax_cam, jax_ext, jax_map,
                                 small_run, torch_map)
@@ -181,12 +184,33 @@ def test_track_and_map_run_small_profile():
         assert chip_smoke.compare_kernel(inp, args[10])[0] == 0
 
 
-def test_kernel_bound_arithmetic():
-    inp = chip_smoke.planted_inputs(3000, 500, np.random.default_rng(2), "cpu")
-    ms, by, d = chip_smoke.kernel_bound(inp, 15.0)
-    assert by == "operations" and d["pairs"] <= 3000 * 500 and 0 < d["passing_pairs"] < d["pairs"]
-    assert d["bytes"] == (3000 + 500) * 45 + 12 * 3000
-    assert ms == pytest.approx((d["pairs"] * 8 + d["passing_pairs"] * 24) / 33.5e12 * 1e3)
+@pytest.mark.parametrize("kernel", ["search", "pose_lm", "pose_vi_lm"])
+def test_kernel_bound_arithmetic(kernel):
+    """Each hand kernel's `work` (its module) over the card's peaks
+    (`probes.bound_ms`): the search on planted inputs at r = 15 px, the pose
+    LM at the batched step's B = 11, O = 1024, 10 iterations, monocular, and
+    the VI pose LM at O = 1024, 20 iterations with the marginal (PERF.md's
+    bounds: 0.53 us and 0.118 us)."""
+    if kernel == "search":
+        inp = chip_smoke.planted_inputs(3000, 500, np.random.default_rng(2), "cpu")
+        work = match_cuda.work(*chip_smoke.search_args(inp), 15.0)
+        rate = probes.SIMPLE_OPS_PER_S
+    elif kernel == "pose_lm":
+        work, rate = pose_lm_cuda.work(11, 1024, 10), probes.FLOAT_OPS_PER_S
+    else:
+        work, rate = pose_vi_lm_cuda.work(1024, 20), probes.FLOAT_OPS_PER_S
+    ms, by, d = probes.bound_ms(*work, rate=rate)
+    assert by == "operations" and ms == pytest.approx(d["operations"] / rate * 1e3)
+    if kernel == "search":
+        assert d["pairs"] <= 3000 * 500 and 0 < d["passing_pairs"] < d["pairs"]
+        assert d["bytes"] == (3000 + 500) * 45 + 12 * 3000
+        assert ms == pytest.approx((d["pairs"] * 8 + d["passing_pairs"] * 24) / 33.5e12 * 1e3)
+    elif kernel == "pose_lm":
+        assert (d["bytes"], d["operations"]) == (451_704, 35_803_812)    # 0.45 MB, 35.8 M
+        assert round(ms * 1e3, 2) == 0.53
+    else:
+        assert (d["bytes"], d["operations"]) == (43_908, 7_879_130)      # 44 KB, 7.88 M
+        assert round(ms * 1e3, 3) == 0.118
 
 
 @pytest.mark.parametrize("prev_idx,broken", [(None, ()), (5, ()), (5, (3,)), (None, (0, 2))])

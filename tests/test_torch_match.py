@@ -135,9 +135,32 @@ def test_wrapper_raises_instead_of_falling_back(pos, bad, exc):
 
 
 def test_wrapper_counts_only_kernel_launches():
-    before = match_cuda.hamming_top2_windowed.launches
+    before = match_cuda.LIB.launches
     match_cuda.hamming_top2_windowed(*_valid_args(), 10.0)   # CPU: the twin
-    assert match_cuda.hamming_top2_windowed.launches == before
+    assert match_cuda.LIB.launches == before
+
+
+@pytest.mark.parametrize("kernel", ["match_cuda", "pose_lm_cuda", "pose_vi_lm_cuda"])
+def test_library_launch_counts_only_what_succeeded(kernel):
+    """The launch every hand kernel's wrapper ends in
+    (`cuda_build.Library.launch`), with the kernel's C entry replaced by a
+    stub that returns 0, then CUDA error 7: the count rises on success only,
+    and an error raises, naming the kernel and the error."""
+    import copy
+    from mc_slam_tpu_torch.solver import pose_lm_cuda, pose_vi_lm_cuda
+    lib = copy.copy({"match_cuda": match_cuda, "pose_lm_cuda": pose_lm_cuda,
+                     "pose_vi_lm_cuda": pose_vi_lm_cuda}[kernel].LIB)
+    codes, seen = iter([0, 7]), []
+    lib._fn = lambda *args: seen.append(args) or next(codes)
+    n0 = lib.launches
+    lib.launch(1, 2.5, None)
+    assert lib.launches == n0 + 1 and seen == [(1, 2.5, None)]
+    with pytest.raises(RuntimeError, match=f"^{lib.name} launch failed: CUDA error 7$"):
+        lib.launch(3)
+    assert lib.launches == n0 + 1 and len(seen) == 2
+    assert lib.name == {"match_cuda": "hamming_top2_windowed",
+                        "pose_lm_cuda": "pose_only_visual_lm",
+                        "pose_vi_lm_cuda": "pose_only_vi_lm"}[kernel]
 
 
 @pytest.mark.parametrize("with_angles", [False, True])
@@ -321,8 +344,8 @@ def test_batched_compare_and_bound_helpers_on_cpu():
         err, n_has = chip_smoke.compare_kernel(inp, radius)
         assert err == 0 and n_has == sum(chip_smoke.compare_kernel(s, radius)[1]
                                          for s in singles)
-        _, _, det = chip_smoke.kernel_bound(inp, radius)
-        parts = [chip_smoke.kernel_bound(s, radius)[2] for s in singles]
+        _, _, det = chip_smoke.search_bound(inp, radius)
+        parts = [chip_smoke.search_bound(s, radius)[2] for s in singles]
         for key in ("bytes", "pairs", "passing_pairs", "operations"):
             assert det[key] == sum(p[key] for p in parts), key
 

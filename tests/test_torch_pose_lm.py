@@ -26,8 +26,9 @@ gaps up to 3e-5 m), chi2 within 1e-2 relative plus 5e-2 (a pose gap of
 3e-5 m moves the residual of a point 1.5 m away by ~0.01 px, so a row's
 chi2 by ~2 |r| 0.01 px x its information: ~1 % of a large chi2, a few
 hundredths near the gate), and inlier counts within 2 (a row on the gate).
-The tolerances and the rotation gap are `chip_smoke.py`'s, which holds the
-kernel to its twin on recorded solves by the same numbers.
+The tolerances and the rotation gap are the kernel's module's
+(`pose_lm_cuda.POSE_LM_*`, `rot_gap_rad`), by which `chip_smoke.py` holds the
+kernel to its twin on recorded solves too.
 """
 import math
 
@@ -35,12 +36,13 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (POSE_LM_CHI2_ATOL as CHI2_ATOL, POSE_LM_CHI2_RTOL as CHI2_RTOL,
-                        POSE_LM_INLIER_TOL as INLIER_TOL, POSE_LM_POS_TOL as POS_TOL,
-                        POSE_LM_ROT_TOL as ROT_TOL, rot_gap_rad)
 from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import make_camera
 from mc_slam_tpu_torch.solver import ba, factors, lm, pose_lm_cuda
+from mc_slam_tpu_torch.solver.pose_lm_cuda import (
+    POSE_LM_CHI2_ATOL as CHI2_ATOL, POSE_LM_CHI2_RTOL as CHI2_RTOL,
+    POSE_LM_INLIER_TOL as INLIER_TOL, POSE_LM_POS_TOL as POS_TOL, POSE_LM_ROT_TOL as ROT_TOL,
+    rot_gap_rad)
 
 torch.set_num_threads(2)
 
@@ -188,10 +190,10 @@ def test_cpu_takes_the_twin(B, stereo):
     """On CPU tensors `pose_only_visual` is its twin, bit for bit, and
     launches nothing; the twin converges on these problems."""
     prob = problems(1, B, 256, 1024, stereo)
-    n0 = pose_lm_cuda.pose_only_visual_lm.launches
+    n0 = pose_lm_cuda.LIB.launches
     got = _solve(ba.pose_only_visual, prob, 10, stereo)
     ref = _solve(ba.pose_only_visual_ref, prob, 10, stereo)
-    assert pose_lm_cuda.pose_only_visual_lm.launches == n0
+    assert pose_lm_cuda.LIB.launches == n0
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
     P, R, chi2, n_in = got
@@ -258,10 +260,10 @@ def test_kernel_matches_twin_on_the_card(cuda, B, stereo):
     P0, R0, pts, obs, cam, ext, _ = prob
     # bf as the stereo system passes it: a 0-d tensor on the card
     kw = dict(iters=10, bf=torch.tensor(BF, device=cuda) if stereo else 0.0)
-    n0 = pose_lm_cuda.pose_only_visual_lm.launches
+    n0 = pose_lm_cuda.LIB.launches
     got = ba.pose_only_visual(P0, R0, pts, obs, cam, ext, **kw)
     torch.cuda.synchronize()
-    assert pose_lm_cuda.pose_only_visual_lm.launches == n0 + 1
+    assert pose_lm_cuda.LIB.launches == n0 + 1
     ref = ba.pose_only_visual_ref(P0, R0, pts, obs, cam, ext, **kw)
     _assert_close(got, ref)
     ok = [b for b in range(11) if b != 5] if B is not None else slice(None)
@@ -306,18 +308,18 @@ def test_kernel_is_deterministic_and_counted(cuda, stereo):
     """Two launches give the same bits; the counter rises by one a call;
     rtol > 0 (the early stop) keeps to the twin too."""
     prob = problems(6, 11, 1024, 16384, stereo, device=cuda)
-    n0 = pose_lm_cuda.pose_only_visual_lm.launches
+    n0 = pose_lm_cuda.LIB.launches
     a = _solve(ba.pose_only_visual, prob, 10, stereo)
     b = _solve(ba.pose_only_visual, prob, 10, stereo)
     torch.cuda.synchronize()
-    assert pose_lm_cuda.pose_only_visual_lm.launches == n0 + 2
+    assert pose_lm_cuda.LIB.launches == n0 + 2
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     P0, R0, pts, obs, cam, ext, _ = prob
     kw = dict(iters=20, bf=BF if stereo else 0.0, rtol=1e-3)
     _assert_close(ba.pose_only_visual(P0, R0, pts, obs, cam, ext, **kw),
                   ba.pose_only_visual_ref(P0, R0, pts, obs, cam, ext, **kw))
-    assert pose_lm_cuda.pose_only_visual_lm.launches == n0 + 3
+    assert pose_lm_cuda.LIB.launches == n0 + 3
 
 
 @pytest.mark.card

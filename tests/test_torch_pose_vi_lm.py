@@ -15,8 +15,9 @@ card it runs without the suite's conftest:
 
     python3 -m pytest -o addopts="" --noconftest -p no:cacheprovider tests/test_torch_pose_vi_lm.py
 
-Tolerances of the kernel against the twin (`chip_smoke.POSE_VI_LM_*`, which
-`chip_smoke.py` holds the kernel to on recorded solves too): both run the
+Tolerances of the kernel against the twin (`pose_vi_lm_cuda.POSE_VI_LM_*` and
+its `twin_gaps`, by which `chip_smoke.py` holds the kernel to its twin on
+recorded solves too): both run the
 same float32 arithmetic, but the visual sums are taken in another order (a
 block reduction against PyTorch's einsum), the 30-d system's products are
 associated differently, the Cholesky is a column-by-column one against
@@ -42,7 +43,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import pose_vi_lm_gaps
 from mc_slam_tpu_torch import lie
 from mc_slam_tpu_torch.camera import make_camera
 from mc_slam_tpu_torch.imu.navstate import NavState
@@ -220,10 +220,10 @@ def test_cpu_takes_the_twin(stereo, compute_marg):
     """On CPU tensors `pose_only_vi` is its twin, bit for bit, and launches
     nothing; the twin converges on these problems."""
     args, kw, Pt = problem(1, 256, 1024, stereo)
-    n0 = pose_vi_lm_cuda.pose_only_vi_lm.launches
+    n0 = pose_vi_lm_cuda.LIB.launches
     got = ba_vi.pose_only_vi(*args, **kw, compute_marg=compute_marg)
     ref = ba_vi.pose_only_vi_ref(*args, **kw, compute_marg=compute_marg)
-    assert pose_vi_lm_cuda.pose_only_vi_lm.launches == n0
+    assert pose_vi_lm_cuda.LIB.launches == n0
     (ns, chi2, n, Hm), (nsr, chi2r, nr, Hmr) = got, ref
     for a, b in zip(ns + (chi2, n, Hm), nsr + (chi2r, nr, Hmr)):
         assert a.dtype == b.dtype and torch.equal(a, b)
@@ -261,7 +261,7 @@ def _assert_close(got, ref):
         assert a.shape == b.shape and a.dtype == b.dtype
     assert chi2.shape == chi2r.shape and Hm.shape == Hmr.shape == (15, 15)
     assert n.shape == nr.shape == () and n.dtype == nr.dtype == torch.int64
-    gaps = pose_vi_lm_gaps(got, ref)
+    gaps = pose_vi_lm_cuda.twin_gaps(got, ref)
     assert all(v <= 1 for v in gaps.values()), gaps
 
 
@@ -274,10 +274,10 @@ def test_kernel_matches_twin_on_the_card(cuda, stereo, compute_marg):
     args, kw, Pt = problem(4, 1024, 16384, stereo, device=cuda)
     if stereo:
         kw["bf"] = torch.tensor(BF, device=cuda)
-    n0 = pose_vi_lm_cuda.pose_only_vi_lm.launches
+    n0 = pose_vi_lm_cuda.LIB.launches
     got = ba_vi.pose_only_vi(*args, **kw, compute_marg=compute_marg)
     torch.cuda.synchronize()
-    assert pose_vi_lm_cuda.pose_only_vi_lm.launches == n0 + 1
+    assert pose_vi_lm_cuda.LIB.launches == n0 + 1
     _assert_close(got, ba_vi.pose_only_vi_ref(*args, **kw, compute_marg=compute_marg))
     assert np.abs(got[0].P.cpu().numpy() - Pt).max() < 0.01
     assert (float(got[3].abs().max()) > 0) == compute_marg
@@ -310,16 +310,16 @@ def test_kernel_is_deterministic_and_counted(cuda, stereo):
     """Two launches give the same bits; the counter rises by one a call;
     rtol > 0 (the early stop) keeps to the twin too."""
     args, kw, _ = problem(7, 1024, 16384, stereo, device=cuda)
-    n0 = pose_vi_lm_cuda.pose_only_vi_lm.launches
+    n0 = pose_vi_lm_cuda.LIB.launches
     a = ba_vi.pose_only_vi(*args, **kw)
     b = ba_vi.pose_only_vi(*args, **kw)
     torch.cuda.synchronize()
-    assert pose_vi_lm_cuda.pose_only_vi_lm.launches == n0 + 2
+    assert pose_vi_lm_cuda.LIB.launches == n0 + 2
     for x, y in zip(a[0] + a[1:], b[0] + b[1:]):
         assert torch.equal(x, y)
     kw = dict(kw, rtol=1e-3)
     _assert_close(ba_vi.pose_only_vi(*args, **kw), ba_vi.pose_only_vi_ref(*args, **kw))
-    assert pose_vi_lm_cuda.pose_only_vi_lm.launches == n0 + 3
+    assert pose_vi_lm_cuda.LIB.launches == n0 + 3
 
 
 @pytest.mark.card

@@ -37,6 +37,7 @@ from mc_slam_tpu_torch.frontend.orb import pack_bits
 from mc_slam_tpu_torch.pipeline import (mapping as tmapping, mapping_ctl as tmapping_ctl,
                                         tracking_ctl as ttracking_ctl)
 from mc_slam_tpu_torch.slam_map.mapstate import MapState, empty_map
+from mc_slam_tpu_torch.tools import probes
 
 torch.set_num_threads(2)
 P = chip_smoke.Profile(width=320, height=240, n_feat=256, n_levels=3, max_mp=1024,
@@ -188,7 +189,7 @@ def _run_two_frames_jax(scene):
 
 def test_two_chained_frames_match_jax(scene):
     ref = _run_two_frames_jax(scene)
-    rec = chip_smoke.SearchRecorder(keep_frames=2, timed=False)
+    rec = probes.search_recorder(keep_frames=2)
     res = chip_smoke.run_slice(scene.m, scene.seq, P, scene.cam, scene.ext,
                                torch.device("cpu"), recorder=rec)
     assert len(rec.calls) == 4          # coarse + fine search per frame

@@ -19,6 +19,7 @@ from mc_slam_tpu.slam_map import mapstate as jms
 from mc_slam_tpu.solver import factors as jfac
 from mc_slam_tpu_torch import convert
 from mc_slam_tpu_torch.slam_map.mapstate import MapState
+from mc_slam_tpu_torch.tools import probes
 
 # small enough for XLA:CPU to compile the event programs in seconds:
 # K = 8 keyframes, P = 1024 points, F = 256 features, window <= 4 (+ padding)
@@ -150,7 +151,7 @@ def small_run():
     cam = chip_smoke.profile_camera(SMALL, "cpu")
     ext = chip_smoke.factors.extrinsics_from_Tbc(chip_smoke.TBC, device="cpu")
     captured = []
-    rec = chip_smoke.SearchRecorder(keep_frames={0, 19}, timed=False)
+    rec = probes.search_recorder(keep_frames={0, 19})
     res = chip_smoke.run_track_and_map(
         seq, SMALL, cam, ext, "cpu", recorder=rec,
         on_event=lambda m, st, i: captured.append((m, copy.deepcopy(st), i)))
